@@ -1,0 +1,29 @@
+"""Model registry of the port (counterpart of ``dsmnet_tpu/models/__init__.py``).
+
+Every model obeys the JAX package's contract, ``scales, disps =
+model(imL, imR, clamp=...)`` with NHWC images and ``disps[0]`` the
+full-resolution (N, H, W, 1) disparity.  Only PSMNet is ported so far;
+the other models wait in ROADMAP.md's queue of modules to port.
+"""
+
+from __future__ import annotations
+
+from .psmnet import PSMNet
+
+MODELS = {"psmnet": PSMNet}
+NOT_PORTED = ("dispnet", "dispnetcorr", "iresnet", "gcnet", "psmnet_basic")
+
+
+def create_model(name: str, maxdisparity: int = 192):
+    """Name -> nn.Module (parameters uninitialized until ``reset_parameters``
+    or a weight load)."""
+    if name in NOT_PORTED:
+        raise NotImplementedError(
+            f"model '{name}' is not ported to PyTorch yet: see ROADMAP.md, "
+            "queue 1 (modules to port), 'Remaining models'")
+    if name not in MODELS:
+        raise ValueError(f"unknown model '{name}'; supported: {sorted(MODELS)}")
+    return MODELS[name](maxdisparity=maxdisparity)
+
+
+__all__ = ["MODELS", "create_model", "PSMNet"]

@@ -1,0 +1,245 @@
+"""Building blocks of the port's models, channels-last.
+
+PyTorch counterpart of ``dsmnet_tpu/models/layers.py``.  Parameters keep
+the flax names and layouts (``Conv_0.kernel`` in HWIO / DHWIO,
+``BatchNorm_0.scale`` / ``bias`` with buffers ``mean`` / ``var``), so that a
+flax variable tree maps onto ``named_parameters`` / ``named_buffers``
+path for path (``interop.py``).  Initializers follow the reference
+(``conv_kernel_init``, ``torch_fanin_uniform``) and draw from an explicit
+``torch.Generator``.
+
+Compute dtype: inside ``compute_dtype(torch.bfloat16)`` the convolutions
+and BN normalization run in bf16 while parameters and BN statistics stay
+float32, as in the JAX package (``layers.py:97-112``).
+"""
+
+from __future__ import annotations
+
+import contextlib
+import contextvars
+import math
+from typing import Callable, Sequence
+
+import torch
+import torch.nn as nn
+import torch.nn.functional as F
+
+from ..ops.conv2d import conv2d_same
+from ..ops.conv3d import conv3d_s2, conv3d_same
+
+__all__ = [
+    "compute_dtype", "default_dtype", "conv_kernel_init", "torch_fanin_uniform",
+    "Kernel", "LeanBN", "ConvBN", "ResBlockPSM", "siamese", "crop_add",
+    "reset_parameters", "calibrate_batch_stats",
+]
+
+_compute_dtype = contextvars.ContextVar("dsmnet_torch_compute_dtype", default=None)
+
+
+@contextlib.contextmanager
+def compute_dtype(dtype):
+    """Run convs / BN of layers called inside the context in ``dtype``."""
+    token = _compute_dtype.set(dtype)
+    try:
+        yield
+    finally:
+        _compute_dtype.reset(token)
+
+
+def default_dtype():
+    return _compute_dtype.get()
+
+
+def conv_kernel_init(shape, generator: torch.Generator) -> torch.Tensor:
+    """N(0, sqrt(2/n)), n = prod(kernel) * out (flax kernel (*k, in, out))."""
+    n = float(math.prod(shape[:-2]) * shape[-1])
+    return torch.randn(shape, generator=generator) * math.sqrt(2.0 / n)
+
+
+def torch_fanin_uniform(shape, generator: torch.Generator) -> torch.Tensor:
+    """U(-s, s), s = 1/sqrt(prod(shape[:-2]) * shape[-2]) — for the flax
+    transpose kernel (*k, out, in) that fan counts the OUTPUT channels,
+    as in the JAX package."""
+    s = 1.0 / math.sqrt(float(math.prod(shape[:-2]) * shape[-2]))
+    return (torch.rand(shape, generator=generator) * 2.0 - 1.0) * s
+
+
+class Kernel(nn.Module):
+    """Holder of one conv kernel parameter named ``kernel`` (flax ``Conv_0``)."""
+
+    def __init__(self, shape: Sequence[int], init: Callable = conv_kernel_init):
+        super().__init__()
+        self.kernel = nn.Parameter(torch.empty(tuple(shape)))
+        self._init = init
+
+    def reset_parameters(self, generator: torch.Generator) -> None:
+        with torch.no_grad():
+            self.kernel.copy_(self._init(tuple(self.kernel.shape), generator))
+
+    def cast(self, x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+        """(x, kernel) in the compute dtype (or in x's dtype outside a context)."""
+        dt = default_dtype() or x.dtype
+        return x.to(dt), self.kernel.to(dt)
+
+
+class LeanBN(nn.Module):
+    """BatchNorm with accumulate-dtype statistics and input-dtype math
+    (``layers.py:115-162``): fast variance E[x^2]-E[x]^2, biased running
+    variance, running = momentum * running + (1 - momentum) * batch with
+    momentum 0.9, statistics in float32 (float64 for a float64 input),
+    and normalization as x * inv + off with inv/off cast to x's dtype.
+    Train mode is used only to calibrate the running statistics."""
+
+    def __init__(self, features: int, momentum: float = 0.9, epsilon: float = 1e-5):
+        super().__init__()
+        self.momentum = momentum
+        self.epsilon = epsilon
+        self.scale = nn.Parameter(torch.ones(features))
+        self.bias = nn.Parameter(torch.zeros(features))
+        self.register_buffer("mean", torch.zeros(features))
+        self.register_buffer("var", torch.ones(features))
+
+    def reset_parameters(self, generator: torch.Generator) -> None:
+        del generator
+        with torch.no_grad():
+            self.scale.fill_(1.0)
+            self.bias.zero_()
+            self.mean.zero_()
+            self.var.fill_(1.0)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        axes = tuple(range(x.dim() - 1))
+        if self.training:
+            acc = torch.promote_types(x.dtype, torch.float32)
+            mean = x.mean(axes, dtype=acc)
+            var = (x * x).mean(axes, dtype=acc) - mean * mean
+            with torch.no_grad():
+                m = self.momentum
+                self.mean.copy_(m * self.mean + (1 - m) * mean)
+                self.var.copy_(m * self.var + (1 - m) * var)
+        else:
+            mean, var = self.mean, self.var
+        rs = torch.rsqrt(var + self.epsilon)
+        inv = (rs * self.scale).to(x.dtype)
+        off = (self.bias - mean * self.scale * rs).to(x.dtype)
+        return x * inv + off
+
+
+def _tup(v, n):
+    return tuple(v) if isinstance(v, (tuple, list)) else (v,) * n
+
+
+class ConvBN(nn.Module):
+    """Conv (2-D or 3-D by ``dims``, no bias) + optional LeanBN + optional ReLU.
+
+    Routing follows ``layers.py:498-518``: 3x3 stride-1 SAME 2-D convs go to
+    ``conv2d_same``, stride-1 SAME undilated 3-D convs to ``conv3d_same``,
+    3x3x3 stride-2 pad-1 3-D convs on even D/H/W to ``conv3d_s2``; the rest
+    (strided or dilated 2-D convs, 1x1 convs) run as plain convolutions.
+    ``padding=None`` is torch's (k-1)//2; PSMNet passes padding=dilation,
+    so its 1x1 SPP branch convs pad by 1.
+    """
+
+    def __init__(self, cin: int, features: int, kernel, stride=1, dims: int = 2,
+                 bn: bool = False, relu: bool = True, dilation=1, padding=None):
+        super().__init__()
+        self.dims = dims
+        self.k = _tup(kernel, dims)
+        self.s = _tup(stride, dims)
+        self.dil = _tup(dilation, dims)
+        self.pad = tuple((kk - 1) // 2 for kk in self.k) if padding is None \
+            else _tup(padding, dims)
+        self.relu = relu
+        self.Conv_0 = Kernel((*self.k, cin, features))
+        self.BatchNorm_0 = LeanBN(features) if bn else None
+        same = self.pad == tuple((kk - 1) // 2 for kk in self.k)
+        undilated = all(d == 1 for d in self.dil)
+        self.fast3d = dims == 3 and all(s == 1 for s in self.s) and undilated and same
+        self.fast3d_s2 = (dims == 3 and self.k == (3, 3, 3) and self.s == (2, 2, 2)
+                          and undilated and self.pad == (1, 1, 1))
+        self.fast2d = (dims == 2 and self.k == (3, 3) and self.s == (1, 1) and undilated
+                       and self.pad == (1, 1))
+
+    def _conv(self, x, kern):
+        if self.fast3d:
+            return conv3d_same(x, kern)
+        if self.fast3d_s2 and all(d % 2 == 0 for d in x.shape[1:4]):
+            return conv3d_s2(x, kern)
+        if self.fast2d:
+            return conv2d_same(x, kern)
+        if self.dims == 2:
+            y = F.conv2d(x.permute(0, 3, 1, 2), kern.permute(3, 2, 0, 1), stride=self.s,
+                         padding=self.pad, dilation=self.dil)
+            return y.permute(0, 2, 3, 1)
+        y = F.conv3d(x.permute(0, 4, 1, 2, 3), kern.permute(4, 3, 0, 1, 2), stride=self.s,
+                     padding=self.pad, dilation=self.dil)
+        return y.permute(0, 2, 3, 4, 1)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x = self._conv(*self.Conv_0.cast(x))
+        if self.BatchNorm_0 is not None:
+            x = self.BatchNorm_0(x)
+        if self.relu:
+            x = F.relu(x)
+        return x
+
+
+class ResBlockPSM(nn.Module):
+    """PSMNet BasicBlock (``layers.py:629-653``): convbn+relu, convbn,
+    residual add (1x1 convbn downsample when the shape changes), no final
+    ReLU; the 3x3 convs pad by their dilation."""
+
+    def __init__(self, cin: int, planes: int, stride: int = 1, dilation: int = 1):
+        super().__init__()
+        self.ConvBN_0 = ConvBN(cin, planes, 3, stride, bn=True, relu=True,
+                               dilation=dilation, padding=dilation)
+        self.ConvBN_1 = ConvBN(planes, planes, 3, 1, bn=True, relu=False,
+                               dilation=dilation, padding=dilation)
+        self.ConvBN_2 = ConvBN(cin, planes, 1, stride, bn=True, relu=False) \
+            if stride != 1 or cin != planes else None
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        y = self.ConvBN_1(self.ConvBN_0(x))
+        residual = self.ConvBN_2(x) if self.ConvBN_2 is not None else x
+        return y + residual
+
+
+def siamese(tower, imL: torch.Tensor, imR: torch.Tensor):
+    """Run a weight-shared tower over both views as ONE batch-2N pass
+    (``layers.py:671-684``); in train mode BN statistics pool over both views."""
+    n = imL.shape[0]
+    f = tower(torch.cat([imL, imR], dim=0))
+    return f[:n], f[n:]
+
+
+def crop_add(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Crop two channels-last operands to their common spatial size and add."""
+    sl = (slice(None),) + tuple(slice(0, min(a.shape[i], b.shape[i]))
+                                for i in range(1, a.dim() - 1))
+    return a[sl] + b[sl]
+
+
+def reset_parameters(model: nn.Module, generator: torch.Generator) -> nn.Module:
+    """Draw every parameter of ``model`` from ``generator``, in module order."""
+    for m in model.modules():
+        if isinstance(m, (Kernel, LeanBN)):
+            m.reset_parameters(generator)
+    return model
+
+
+@torch.no_grad()
+def calibrate_batch_stats(model: nn.Module, *inputs) -> None:
+    """Set every LeanBN's running statistics to the batch statistics of one
+    train-mode forward over ``inputs`` (momentum 0 for that pass), then
+    return the model to eval mode."""
+    bns = [m for m in model.modules() if isinstance(m, LeanBN)]
+    saved = [bn.momentum for bn in bns]
+    model.train()
+    try:
+        for bn in bns:
+            bn.momentum = 0.0
+        model(*inputs)
+    finally:
+        for bn, m in zip(bns, saved):
+            bn.momentum = m
+        model.eval()

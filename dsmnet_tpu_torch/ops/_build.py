@@ -1,0 +1,155 @@
+"""Build and bind the port's hand-written CUDA kernels.
+
+``csrc/*.cu`` compile at first use with ``nvcc`` for ``sm_90a`` (one
+process per source, all started together), link into one shared library
+with a plain C interface, and bind with ``ctypes``.  The build goes to
+``dsmnet_tpu_torch/_build/``, keyed by a hash of the sources and flags,
+so an edited source rebuilds.  A missing ``nvcc`` or a failed compile
+raises; there is no fallback.
+
+Every C entry point takes device pointers, a dtype code, the shape and
+the CUDA stream, launches on that stream without synchronising, and
+returns ``cudaGetLastError()``; :func:`check` raises on a non-zero code.
+``LAUNCHES`` counts, per kernel, the launches its wrapper made.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+from pathlib import Path
+
+import torch
+
+PACKAGE_DIR = Path(__file__).resolve().parent.parent
+CSRC = PACKAGE_DIR / "csrc"
+BUILD_DIR = PACKAGE_DIR / "_build"  # listed in .gitignore
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-Xcompiler", "-fPIC", "-Xptxas=-v")
+
+# kernel name -> C entry point
+ENTRY_POINTS = {
+    "conv2d_k3": "dsm_conv2d_k3",
+    "conv3d_k3": "dsm_conv3d_k3",
+    "conv3d_k3s2": "dsm_conv3d_k3s2",
+    "deconv3d_k3s2": "dsm_deconv3d_k3s2",
+}
+DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+
+LAUNCHES: dict[str, int] = {name: 0 for name in ENTRY_POINTS}
+
+_lib: ctypes.CDLL | None = None
+_entry: dict[str, ctypes._CFuncPtr] = {}  # kernel name -> bound C entry point
+
+
+def reset_launches() -> None:
+    for name in LAUNCHES:
+        LAUNCHES[name] = 0
+
+
+def _nvcc() -> str:
+    home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH")
+    for cand in ((Path(home) / "bin" / "nvcc") if home else None,
+                 shutil.which("nvcc"), "/usr/local/cuda/bin/nvcc"):
+        if cand and Path(cand).is_file():
+            return str(cand)
+    raise RuntimeError("nvcc not found: the port's CUDA kernels are built with the "
+                       "CUDA toolkit (set CUDA_HOME or put nvcc on PATH)")
+
+
+def _sources() -> list[Path]:
+    return sorted(CSRC.glob("*.cu"))
+
+
+def _digest() -> str:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for p in sorted(CSRC.glob("*.cu*")):
+        h.update(p.name.encode())
+        h.update(p.read_bytes())
+    return h.hexdigest()[:16]
+
+
+def build() -> Path:
+    """Compile csrc/*.cu into the shared library (if not built yet); returns its path."""
+    digest = _digest()
+    so = BUILD_DIR / f"libdsmnet_kernels_{digest}.so"
+    if so.is_file():
+        return so
+    nvcc = _nvcc()
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tag = f"{digest}.{os.getpid()}"
+    jobs = []
+    for src in _sources():
+        obj = BUILD_DIR / f"{src.stem}.{tag}.o"
+        cmd = [nvcc, *NVCC_FLAGS, "-c", str(src), "-o", str(obj)]
+        jobs.append((src, obj, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                                stderr=subprocess.STDOUT, text=True)))
+    logs, failed = [], []
+    for src, _, proc in jobs:
+        out, _ = proc.communicate()
+        logs.append(f"== {src.name} (rc {proc.returncode})\n{out}")
+        if proc.returncode != 0:
+            failed.append(src.name)
+    so.with_suffix(".log").write_text("\n".join(logs))
+    if failed:
+        raise RuntimeError(f"nvcc failed on {failed}:\n" + "\n".join(logs))
+    tmp = BUILD_DIR / f"libdsmnet_kernels.{tag}.so"
+    link = subprocess.run([nvcc, "-shared", "-o", str(tmp), *[str(o) for _, o, _ in jobs]],
+                          stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    for _, obj, _ in jobs:
+        obj.unlink(missing_ok=True)
+    if link.returncode != 0:
+        raise RuntimeError(f"linking the kernel library failed:\n{link.stdout}")
+    os.replace(tmp, so)
+    return so
+
+
+def lib() -> ctypes.CDLL:
+    """The loaded kernel library, built on first use; binds every entry point once."""
+    global _lib
+    if _lib is None:
+        handle = ctypes.CDLL(str(build()))
+        for name, fn in ENTRY_POINTS.items():
+            f = getattr(handle, fn)
+            # (x, w, y, dtype, N, D|H, H|W, W|C, C|Co, Co|-, stream): pointers
+            # and the stream as c_void_p, sizes as c_int
+            f.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * (
+                6 if fn == "dsm_conv2d_k3" else 7) + [ctypes.c_void_p]
+            f.restype = ctypes.c_int
+            _entry[name] = f
+        _lib = handle
+    return _lib
+
+
+def check(rc: int, name: str) -> None:
+    if rc != 0:
+        raise RuntimeError(f"CUDA kernel {name} failed to launch: cudaError {rc}")
+
+
+def require_cuda(name: str, *tensors: torch.Tensor) -> None:
+    """Raise unless every tensor is a contiguous CUDA tensor of one kernel dtype."""
+    dt = tensors[0].dtype
+    for t in tensors:
+        if not t.is_cuda:
+            raise RuntimeError(f"kernel {name} runs on CUDA tensors; got one on {t.device}")
+        if t.dtype != dt or dt not in DTYPE_CODES:
+            raise TypeError(f"kernel {name} takes float32 or bfloat16 operands of one "
+                            f"dtype; got {[u.dtype for u in tensors]}")
+        if not t.is_contiguous():
+            raise ValueError(f"kernel {name} needs contiguous operands")
+        if t.device != tensors[0].device:
+            raise RuntimeError(f"kernel {name} operands lie on different devices")
+
+
+def launch(name: str, device: torch.device, *args) -> None:
+    """Call kernel ``name``'s entry point on ``device``'s current stream and count it."""
+    if _lib is None:
+        lib()
+    if device.index != torch.cuda.current_device():
+        with torch.cuda.device(device):
+            return launch(name, device, *args)
+    check(_entry[name](*args, torch.cuda.current_stream(device).cuda_stream), name)
+    LAUNCHES[name] += 1

@@ -1,0 +1,54 @@
+"""Align-corners bilinear resizing as dense interpolation matmuls.
+
+PyTorch counterpart of ``dsmnet_tpu/ops/resize.py``: the reference's
+torch-0.3 upsampling always aligned corners, and the JAX package builds
+the 1-D operators itself.  The port keeps the same float32 operators so
+that both packages weight samples identically.
+"""
+
+from __future__ import annotations
+
+import functools
+
+import numpy as np
+import torch
+
+__all__ = ["interp_matrix", "resize_bilinear"]
+
+
+@functools.lru_cache(maxsize=None)
+def interp_matrix(n_out: int, n_in: int) -> np.ndarray:
+    """Dense 1-D align-corners linear interpolation matrix (n_out, n_in).
+
+    Row i holds the bilinear weights with which input samples combine to
+    produce output sample i, with src = i * (n_in-1)/(n_out-1).
+    """
+    A = np.zeros((n_out, n_in), dtype=np.float32)
+    if n_in == 1 or n_out == 1:
+        # degenerate axes: every output copies input sample 0 (align-corners
+        # with a single output lands on src=0)
+        A[:, 0] = 1.0
+        return A
+    src = np.arange(n_out, dtype=np.float64) * (n_in - 1) / (n_out - 1)
+    j0 = np.floor(src).astype(np.int64)
+    j0 = np.minimum(j0, n_in - 2)
+    frac = (src - j0).astype(np.float32)
+    rows = np.arange(n_out)
+    A[rows, j0] = 1.0 - frac
+    A[rows, j0 + 1] = frac
+    return A
+
+
+def interp_tensor(n_out: int, n_in: int, like: torch.Tensor, dtype=None) -> torch.Tensor:
+    return torch.as_tensor(interp_matrix(n_out, n_in), dtype=dtype or like.dtype,
+                           device=like.device)
+
+
+def resize_bilinear(x: torch.Tensor, out_hw: tuple[int, int]) -> torch.Tensor:
+    """Align-corners bilinear resize of NHWC ``x`` to spatial ``out_hw``."""
+    n, h, w, c = x.shape
+    oh, ow = out_hw
+    if (oh, ow) == (h, w):
+        return x
+    x = torch.einsum("ih,nhwc->niwc", interp_tensor(oh, h, x), x)
+    return torch.einsum("jw,niwc->nijc", interp_tensor(ow, w, x), x)

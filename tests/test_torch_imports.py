@@ -1,0 +1,104 @@
+"""Import boundary and device rules of the PyTorch port (dsmnet_tpu_torch).
+
+  * The port and chip_smoke.py import nothing of JAX, flax or the JAX
+    package ``dsmnet_tpu``: checked in a fresh interpreter.
+  * Entry points default to CUDA and raise when it is absent: checked in a
+    subprocess with every card hidden, so the check means the same on any
+    host.
+  * A kernel wrapper asked for its CUDA path on a CPU tensor raises before
+    it computes anything.
+"""
+
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+import torch
+
+from dsmnet_tpu_torch import config
+from dsmnet_tpu_torch.ops import _build, conv2d, conv3d
+
+REPO = Path(__file__).resolve().parent.parent
+
+
+@pytest.fixture(autouse=True)
+def _two_threads():
+    old = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(old)
+
+
+def _run(code: str) -> subprocess.CompletedProcess:
+    env = dict(os.environ, PYTHONPATH=str(REPO), CUDA_VISIBLE_DEVICES="")
+    return subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                          capture_output=True, text=True, timeout=120)
+
+
+_IMPORT_ALL = """
+import importlib, pkgutil, sys
+import dsmnet_tpu_torch
+names = [m.name for m in pkgutil.walk_packages(dsmnet_tpu_torch.__path__, "dsmnet_tpu_torch.")]
+for name in names:
+    importlib.import_module(name)
+import chip_smoke
+bad = sorted(m for m in sys.modules
+             if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax", "dsmnet_tpu"))
+print(len(names), bad)
+"""
+
+
+def test_port_imports_no_jax():
+    res = _run(_IMPORT_ALL)
+    assert res.returncode == 0, res.stderr
+    count, bad = res.stdout.strip().split(" ", 1)
+    assert int(count) >= 15, res.stdout  # every module of the package was reached
+    assert bad == "[]", f"the port pulled in {bad}"
+
+
+_ENTRY_POINTS = {
+    "predictor": "from dsmnet_tpu_torch.serve import Predictor\n"
+                 "Predictor(maxdisparity=16)",
+    "cli_deploy": "from dsmnet_tpu_torch import cli\n"
+                  "cli.main(['--mode', 'deploy', '--maxdisparity', '16',"
+                  " '--path_left', 'README.md', '--path_right', 'README.md'])",
+    "resolve_device": "from dsmnet_tpu_torch import config\nconfig.resolve_device(None)",
+}
+
+
+@pytest.mark.parametrize("entry", sorted(_ENTRY_POINTS))
+def test_entry_point_without_cuda_raises(entry):
+    """device=None means CUDA; with no card the call raises, never falls back."""
+    res = _run("import torch\nassert not torch.cuda.is_available()\n" + _ENTRY_POINTS[entry])
+    assert res.returncode != 0
+    assert "CUDA is not available" in res.stderr, res.stderr
+
+
+# op switch -> (kernel wrapper, module holding its plain version, plain name, x, k)
+_WRAPPERS = {
+    "conv2d": (conv2d.conv2d_k3, conv2d, "conv2d_k3_plain", (1, 4, 8, 32), (3, 3, 32, 32)),
+    "conv3d": (conv3d.conv3d_k3, conv3d, "conv3d_plain", (1, 2, 4, 8, 32), (3, 3, 3, 32, 32)),
+    "conv3d_s2": (conv3d.conv3d_k3s2, conv3d, "conv3d_s2_plain", (1, 2, 4, 8, 32),
+                  (3, 3, 3, 32, 64)),
+    "deconv3d": (conv3d.deconv3d_k3s2_kernel, conv3d, "deconv3d_k3s2_plain",
+                 (1, 2, 4, 8, 64), (3, 3, 3, 32, 64)),
+}
+
+
+@pytest.mark.parametrize("op", sorted(_WRAPPERS))
+def test_kernel_wrapper_refuses_cpu_tensor(op, monkeypatch):
+    """Forced to the kernel, a wrapper given a CPU tensor raises; it neither
+    runs the plain version nor builds, loads or counts a kernel."""
+    wrapper, module, plain_name, xs, ks = _WRAPPERS[op]
+    calls = []
+    monkeypatch.setattr(module, plain_name, lambda *a: calls.append(a))
+    monkeypatch.setattr(_build, "build", lambda: calls.append("build"))
+    before = dict(_build.LAUNCHES)
+    x, k = torch.zeros(xs), torch.zeros(ks)
+    with config.implementation("kernel", ops=(op,)):
+        with pytest.raises(RuntimeError, match="runs on CUDA tensors"):
+            wrapper(x, k)
+    assert calls == []
+    assert _build.LAUNCHES == before
