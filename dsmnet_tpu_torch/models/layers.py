@@ -10,7 +10,9 @@ path for path (``interop.py``).  Initializers follow the reference
 
 Compute dtype: inside ``compute_dtype(torch.bfloat16)`` the convolutions
 and BN normalization run in bf16 while parameters and BN statistics stay
-float32, as in the JAX package (``layers.py:97-112``).
+float32, as in the JAX package (``layers.py:97-112``).  In train mode
+LeanBN backpropagates through its batch statistics without an f32 copy
+of the activation (``_Moments``).
 """
 
 from __future__ import annotations
@@ -82,13 +84,37 @@ class Kernel(nn.Module):
         return x.to(dt), self.kernel.to(dt)
 
 
+class _Moments(torch.autograd.Function):
+    """(E[x], E[x^2]) over every axis but the last, accumulated in ``acc``.
+
+    The backward, dx = (g_mean + 2 x g_sq) / M, runs in x's dtype: autograd
+    of ``x.mean(dtype=float32)`` would build the broadcast gradient as a
+    float32 activation-sized tensor and cast it back.  This is the
+    gradient JAX's ``jnp.mean(x, dtype=f32)`` transposes to (a bf16
+    broadcast of the per-channel cotangent)."""
+
+    @staticmethod
+    def forward(ctx, x, acc):
+        ctx.save_for_backward(x)
+        axes = tuple(range(x.dim() - 1))
+        return x.mean(axes, dtype=acc), (x * x).mean(axes, dtype=acc)
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, g_mean, g_sq):
+        x, = ctx.saved_tensors
+        m = x.numel() // x.shape[-1]
+        return torch.addcmul((g_mean / m).to(x.dtype), x, (2 * g_sq / m).to(x.dtype)), None
+
+
 class LeanBN(nn.Module):
     """BatchNorm with accumulate-dtype statistics and input-dtype math
     (``layers.py:115-162``): fast variance E[x^2]-E[x]^2, biased running
     variance, running = momentum * running + (1 - momentum) * batch with
     momentum 0.9, statistics in float32 (float64 for a float64 input),
     and normalization as x * inv + off with inv/off cast to x's dtype.
-    Train mode is used only to calibrate the running statistics."""
+    In train mode the batch statistics carry the gradient; the running
+    statistics update without one."""
 
     def __init__(self, features: int, momentum: float = 0.9, epsilon: float = 1e-5):
         super().__init__()
@@ -108,11 +134,9 @@ class LeanBN(nn.Module):
             self.var.fill_(1.0)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        axes = tuple(range(x.dim() - 1))
         if self.training:
-            acc = torch.promote_types(x.dtype, torch.float32)
-            mean = x.mean(axes, dtype=acc)
-            var = (x * x).mean(axes, dtype=acc) - mean * mean
+            mean, sq = _Moments.apply(x, torch.promote_types(x.dtype, torch.float32))
+            var = sq - mean * mean
             with torch.no_grad():
                 m = self.momentum
                 self.mean.copy_(m * self.mean + (1 - m) * mean)

@@ -11,6 +11,10 @@ Every C entry point takes device pointers, a dtype code, the shape and
 the CUDA stream, launches on that stream without synchronising, and
 returns ``cudaGetLastError()``; :func:`check` raises on a non-zero code.
 ``LAUNCHES`` counts, per kernel, the launches its wrapper made.
+
+A wrapper returns a tensor with no autograd history, so it refuses
+operands that require grad while grad mode is on (:func:`require_no_grad`):
+the ops reach the wrappers only inside their ``torch.autograd.Function``.
 """
 
 from __future__ import annotations
@@ -30,14 +34,23 @@ BUILD_DIR = PACKAGE_DIR / "_build"  # listed in .gitignore
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-Xptxas=-v")
 
-# kernel name -> C entry point
+# kernel name -> (C entry point, device pointers, int arguments).  Forward
+# kernels take (x, w, y, dtype, N, [D,] H, W, C, Co); the weight-gradient
+# kernels take (x, g, dk, workspace, dtype, N, D, H, W, C, Co, chunks).
 ENTRY_POINTS = {
-    "conv2d_k3": "dsm_conv2d_k3",
-    "conv3d_k3": "dsm_conv3d_k3",
-    "conv3d_k3s2": "dsm_conv3d_k3s2",
-    "deconv3d_k3s2": "dsm_deconv3d_k3s2",
+    "conv2d_k3": ("dsm_conv2d_k3", 3, 6),
+    "conv3d_k3": ("dsm_conv3d_k3", 3, 7),
+    "conv3d_k3s2": ("dsm_conv3d_k3s2", 3, 7),
+    "deconv3d_k3s2": ("dsm_deconv3d_k3s2", 3, 7),
+    "conv2d_dk_k3": ("dsm_conv2d_dk_k3", 4, 8),
+    "conv3d_dk_k3": ("dsm_conv3d_dk_k3", 4, 8),
+    "conv3d_dk_k3s2": ("dsm_conv3d_dk_k3s2", 4, 8),
 }
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+# A weight-gradient kernel splits the positions into at most DK_CHUNKS
+# chunks, each summed into its own float32 partial dK; a second pass adds
+# the partials in a fixed order, so dK is the same bits on every run.
+DK_CHUNKS = 128
 
 LAUNCHES: dict[str, int] = {name: 0 for name in ENTRY_POINTS}
 
@@ -112,12 +125,10 @@ def lib() -> ctypes.CDLL:
     global _lib
     if _lib is None:
         handle = ctypes.CDLL(str(build()))
-        for name, fn in ENTRY_POINTS.items():
+        for name, (fn, n_ptr, n_int) in ENTRY_POINTS.items():
             f = getattr(handle, fn)
-            # (x, w, y, dtype, N, D|H, H|W, W|C, C|Co, Co|-, stream): pointers
-            # and the stream as c_void_p, sizes as c_int
-            f.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * (
-                6 if fn == "dsm_conv2d_k3" else 7) + [ctypes.c_void_p]
+            # pointers and the stream as c_void_p, the dtype and sizes as c_int
+            f.argtypes = [ctypes.c_void_p] * n_ptr + [ctypes.c_int] * n_int + [ctypes.c_void_p]
             f.restype = ctypes.c_int
             _entry[name] = f
         _lib = handle
@@ -127,6 +138,16 @@ def lib() -> ctypes.CDLL:
 def check(rc: int, name: str) -> None:
     if rc != 0:
         raise RuntimeError(f"CUDA kernel {name} failed to launch: cudaError {rc}")
+
+
+def require_no_grad(name: str, *tensors: torch.Tensor) -> None:
+    """Raise if autograd would need a gradient through this wrapper's result:
+    the wrapper's output carries no history, so outside its op's
+    ``autograd.Function`` it would silently cut the graph."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
+        raise RuntimeError(f"kernel {name} got an operand that requires grad outside its "
+                           "autograd.Function; call the op (conv2d_same, conv3d_same, "
+                           "conv3d_s2, deconv3d_k3s2) so that the gradient is kept")
 
 
 def require_cuda(name: str, *tensors: torch.Tensor) -> None:
@@ -142,6 +163,21 @@ def require_cuda(name: str, *tensors: torch.Tensor) -> None:
             raise ValueError(f"kernel {name} needs contiguous operands")
         if t.device != tensors[0].device:
             raise RuntimeError(f"kernel {name} operands lie on different devices")
+
+
+def launch_dk(name: str, x: torch.Tensor, g: torch.Tensor, taps: int,
+              dims: tuple[int, int, int, int, int, int], rows: int) -> torch.Tensor:
+    """Launch weight-gradient kernel ``name`` on x and the cotangent g:
+    ``dims`` = (N, D, H, W, C, Co) of x (D = 1 for 2-D) and g's channels,
+    ``rows`` the number of cotangent rows (one W line each).  Returns dK
+    flat, ``taps * C * Co`` float32."""
+    chunks = max(1, min(DK_CHUNKS, rows))
+    c, co = dims[4], dims[5]
+    ws = torch.empty((chunks, taps * c * co), dtype=torch.float32, device=x.device)
+    dk = torch.empty((taps * c * co,), dtype=torch.float32, device=x.device)
+    launch(name, x.device, x.data_ptr(), g.data_ptr(), dk.data_ptr(), ws.data_ptr(),
+           DTYPE_CODES[x.dtype], *dims, chunks)
+    return dk
 
 
 def launch(name: str, device: torch.device, *args) -> None:

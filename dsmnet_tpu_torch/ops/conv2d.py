@@ -1,10 +1,17 @@
-"""stride-1 SAME 3x3 2-D convolution, channels-last.
+"""stride-1 SAME 3x3 2-D convolution, channels-last, with its gradient.
 
 PyTorch counterpart of ``dsmnet_tpu/ops/conv2d.py``.  As in the JAX
 package (``pallas2d_ok``, ``dsmnet_tpu/ops/conv2d_pallas.py:41-55``), only
-C == Co == 32 goes to the hand-written kernel (kernel A,
-``csrc/conv2d_k3.cu``, which replaces ``conv2d_fwd_pallas_folded``);
-every other shape takes the plain version.
+C == Co == 32 goes to the hand-written kernels, through the autograd
+``Function`` ``_Conv2dK3`` (the JAX ``custom_vjp``, ``conv2d.py:38-65``):
+
+  * forward: kernel A (``csrc/conv2d_k3.cu``, replaces
+    ``conv2d_fwd_pallas_folded``);
+  * dx: kernel A on the cotangent with the flipped, channel-swapped kernel;
+  * dK: kernel E (``csrc/conv2d_dk_k3.cu``, replaces
+    ``conv2d_dk_pallas_folded``), float32, cast to the kernel's dtype.
+
+Every other shape takes the plain version and plain autograd.
 """
 
 from __future__ import annotations
@@ -15,13 +22,26 @@ import torch.nn.functional as F
 from .. import config
 from . import _build
 
-__all__ = ["conv2d_same", "conv2d_k3", "conv2d_k3_plain"]
+__all__ = ["conv2d_same", "conv2d_k3", "conv2d_k3_plain", "conv2d_dk_k3", "conv2d_dk_plain"]
 
 
 def conv2d_k3_plain(x: torch.Tensor, k: torch.Tensor) -> torch.Tensor:
     """Plain version: x (N,H,W,C), k (3,3,C,Co) HWIO -> (N,H,W,Co)."""
     y = F.conv2d(x.permute(0, 3, 1, 2), k.permute(3, 2, 0, 1), padding=1)
     return y.permute(0, 2, 3, 1)
+
+
+def conv2d_dk_plain(x: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
+    """Plain weight gradient of the 3x3 SAME conv, one einsum per tap
+    (JAX ``_dk_pertap``): x (N,H,W,C), g (N,H,W,Co) -> (3,3,C,Co) in float32
+    (float64 for float64 operands)."""
+    acc = torch.promote_types(x.dtype, torch.float32)
+    h, w = x.shape[1:3]
+    xp = F.pad(x.to(acc), (0, 0, 1, 1, 1, 1))
+    g = g.to(acc)
+    return torch.stack([torch.einsum("nhwc,nhwo->co", xp[:, kh:kh + h, kw:kw + w], g)
+                        for kh in range(3) for kw in range(3)]).reshape(3, 3, x.shape[-1],
+                                                                       g.shape[-1])
 
 
 def kernel_ok(x: torch.Tensor, k: torch.Tensor) -> bool:
@@ -31,6 +51,7 @@ def kernel_ok(x: torch.Tensor, k: torch.Tensor) -> bool:
 def conv2d_k3(x: torch.Tensor, k: torch.Tensor) -> torch.Tensor:
     """Kernel A wrapper.  A CPU tensor takes the plain version; a CUDA
     tensor launches the kernel or raises."""
+    _build.require_no_grad("conv2d_k3", x, k)
     if not config.launches_kernel("conv2d", x):
         return conv2d_k3_plain(x, k)
     _build.require_cuda("conv2d_k3", x, k)
@@ -44,8 +65,44 @@ def conv2d_k3(x: torch.Tensor, k: torch.Tensor) -> torch.Tensor:
     return y
 
 
+def conv2d_dk_k3(x: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
+    """Kernel E wrapper: dK (3,3,32,32) float32 from x (N,H,W,32) and the
+    cotangent g (N,H,W,32)."""
+    _build.require_no_grad("conv2d_dk_k3", x, g)
+    if not config.launches_kernel("conv2d", x):
+        return conv2d_dk_plain(x, g)
+    _build.require_cuda("conv2d_dk_k3", x, g)
+    if not (x.dim() == 4 and x.shape[-1] == 32 and g.shape == x.shape):
+        raise ValueError(f"conv2d_dk_k3 takes x and g (N,H,W,32); got {tuple(x.shape)}, "
+                         f"{tuple(g.shape)}")
+    n, h, w, c = x.shape
+    return _build.launch_dk("conv2d_dk_k3", x, g, 9, (n, 1, h, w, c, 32), n * h).reshape(
+        3, 3, 32, 32)
+
+
+class _Conv2dK3(torch.autograd.Function):
+    """Kernel A forward; A (dx) and E (dK) backward (JAX ``conv2d.py:52-62``)."""
+
+    @staticmethod
+    def forward(ctx, x, k):
+        ctx.save_for_backward(x, k)
+        return conv2d_k3(x, k)
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, g):
+        x, k = ctx.saved_tensors
+        g = g.contiguous()
+        dx = dk = None
+        if ctx.needs_input_grad[0]:
+            dx = conv2d_k3(g, k.flip((0, 1)).transpose(2, 3).contiguous())
+        if ctx.needs_input_grad[1]:
+            dk = conv2d_dk_k3(x, g).to(k.dtype)
+        return dx, dk
+
+
 def conv2d_same(x: torch.Tensor, k: torch.Tensor) -> torch.Tensor:
     """stride-1 SAME conv, x (N,H,W,C), k (3,3,C,Co)."""
     if config.impl["conv2d"] != "plain" and kernel_ok(x, k):
-        return conv2d_k3(x.contiguous(), k.contiguous())
+        return _Conv2dK3.apply(x.contiguous(), k.contiguous())
     return conv2d_k3_plain(x, k)

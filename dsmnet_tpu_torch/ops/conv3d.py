@@ -1,19 +1,32 @@
-"""3-D convolutions of PSMNet's regularizer, channels-last.
+"""3-D convolutions of PSMNet's regularizer, channels-last, with their gradients.
 
 PyTorch counterpart of ``dsmnet_tpu/ops/conv3d.py`` (with the Pallas
-forward kernels of ``conv3d_pallas.py`` / ``conv3d_s2_pallas.py`` and the
-folded deconv of ``folded.py``).  Three ops, each with a hand-written
-kernel for the shapes the JAX package sends to Pallas and the plain
-PyTorch version for the rest:
+kernels of ``conv3d_pallas.py`` / ``conv3d_s2_pallas.py`` and the custom
+VJPs of ``folded.py``).  Three ops; each takes the autograd ``Function``
+below for the shapes the JAX package sends to Pallas, and the plain
+PyTorch version with plain autograd for the rest:
 
-  * ``conv3d_same`` — 3x3x3 stride 1 SAME; kernel B (``csrc/conv3d_k3.cu``)
-    for C, Co in {32, 64}.  The Cout=1 classifier head stays plain, as
-    JAX computes it outside Pallas (``folded.py:170-194``).
-  * ``conv3d_s2`` — 3x3x3 stride 2 pad 1, even D/H/W; kernel C
-    (``csrc/conv3d_k3s2.cu``) for C in {32, 64}, Co = 64.
+  * ``conv3d_same`` — 3x3x3 stride 1 SAME, C, Co in {32, 64}
+    (``_Conv3dK3``, JAX ``_s1_bwd`` ``folded.py:120-141``): forward and dx
+    on kernel B (``csrc/conv3d_k3.cu``; dx with the flipped,
+    channel-swapped kernel), dK on kernel F (``csrc/conv3d_dk_k3.cu``).
+    The Cout=1 classifier head stays plain, as JAX computes it outside
+    Pallas (``folded.py:170-206``).
+  * ``conv3d_s2`` — 3x3x3 stride 2 pad 1, even D/H/W, C in {32, 64},
+    Co = 64 (``_Conv3dK3S2``, JAX ``_s2f_bwd`` ``folded.py:245-280``):
+    forward on kernel C (``csrc/conv3d_k3s2.cu``); dx, the k3s2 transposed
+    conv of the cotangent with the forward kernel, on kernel D for C = 32
+    and plain for C = 64 (JAX's gate ``s2_dx_pallas_ok``); dK on kernel G
+    (``csrc/conv3d_dk_k3s2.cu``).
   * ``deconv3d_k3s2`` — ConvTranspose3d k3 s2 p1 op1 on the flax
-    (3,3,3,Cout,Cin) kernel; kernel D (``csrc/deconv3d_k3s2.cu``) for
-    Cin 64 -> Cout 32, the ``_fdc_eligible`` gate (``folded.py:302-316``).
+    (3,3,3,Cout,Cin) kernel, Cin 64 -> Cout 32 (``_Deconv3dK3S2``, JAX
+    ``_fdc_bwd`` ``folded.py:347-361``): forward on kernel D
+    (``csrc/deconv3d_k3s2.cu``), d(input) on kernel C (the stride-2 conv of
+    the cotangent), dW on kernel G with the roles swapped.  The 64 -> 64
+    deconv is plain both ways, as in JAX.
+
+Every weight gradient comes out of its kernel in float32 and is cast to
+the kernel's dtype, as JAX's ``dk.astype(k.dtype)``.
 """
 
 from __future__ import annotations
@@ -26,8 +39,9 @@ from . import _build
 
 __all__ = [
     "conv3d_same", "conv3d_s2", "deconv3d_k3s2",
-    "conv3d_k3", "conv3d_k3s2", "deconv3d_k3s2_kernel",
-    "conv3d_plain", "conv3d_s2_plain", "deconv3d_k3s2_plain",
+    "conv3d_k3", "conv3d_k3s2", "deconv3d_k3s2_kernel", "conv3d_dk_k3", "conv3d_s2_dk_k3",
+    "conv3d_plain", "conv3d_s2_plain", "deconv3d_k3s2_plain", "conv3d_dk_plain",
+    "conv3d_s2_dk_plain",
 ]
 
 
@@ -61,6 +75,35 @@ def deconv3d_k3s2_plain(x: torch.Tensor, k: torch.Tensor) -> torch.Tensor:
     return _ndhwc(F.conv_transpose3d(_ncdhw(x), w, stride=2, padding=1, output_padding=1))
 
 
+def _dk_taps(xp, g, stride: int) -> torch.Tensor:
+    """Per-tap weight gradient (JAX ``_dk_pertap``, ``conv3d.py:212``): xp is
+    x zero-padded by 1 in D/H/W, tap (kd,kh,kw) pairs g[o] with
+    xp[stride * o + (kd,kh,kw)]; (3,3,3,C,Co) in xp's dtype."""
+    dg, hg, wg = g.shape[1:4]
+    span = lambda k, n: slice(k, k + stride * (n - 1) + 1, stride)
+    return torch.stack([
+        torch.einsum("ndhwc,ndhwo->co",
+                     xp[:, span(kd, dg), span(kh, hg), span(kw, wg)], g)
+        for kd in range(3) for kh in range(3) for kw in range(3)
+    ]).reshape(3, 3, 3, xp.shape[-1], g.shape[-1])
+
+
+def conv3d_dk_plain(x: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
+    """Plain weight gradient of the stride-1 SAME 3x3x3 conv: x (N,D,H,W,C),
+    g (N,D,H,W,Co) -> (3,3,3,C,Co) in float32 (float64 for float64)."""
+    acc = torch.promote_types(x.dtype, torch.float32)
+    return _dk_taps(F.pad(x.to(acc), (0, 0, 1, 1, 1, 1, 1, 1)), g.to(acc), 1)
+
+
+def conv3d_s2_dk_plain(x: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
+    """Plain weight gradient of the stride-2 pad-1 3x3x3 conv: x
+    (N,D,H,W,C), g (N,D/2,H/2,W/2,Co) -> (3,3,3,C,Co) in float32 (float64
+    for float64).  With x the cotangent of a k3s2 deconv's output and g
+    the deconv's input it is the deconv's dW (flax (3,3,3,Cout,Cin))."""
+    acc = torch.promote_types(x.dtype, torch.float32)
+    return _dk_taps(F.pad(x.to(acc), (0, 0, 1, 1, 1, 1, 1, 1)), g.to(acc), 2)
+
+
 # ---------------------------------------------------------- kernel wrappers
 
 def conv3d_k3_ok(x, k) -> bool:
@@ -71,6 +114,7 @@ def conv3d_k3_ok(x, k) -> bool:
 def conv3d_k3(x: torch.Tensor, k: torch.Tensor) -> torch.Tensor:
     """Kernel B wrapper (stride-1 SAME 3x3x3).  A CPU tensor takes the
     plain version; a CUDA tensor launches the kernel or raises."""
+    _build.require_no_grad("conv3d_k3", x, k)
     if not config.launches_kernel("conv3d", x):
         return conv3d_plain(x, k)
     _build.require_cuda("conv3d_k3", x, k)
@@ -93,6 +137,7 @@ def conv3d_k3s2_ok(x, k) -> bool:
 
 def conv3d_k3s2(x: torch.Tensor, k: torch.Tensor) -> torch.Tensor:
     """Kernel C wrapper (stride-2 pad-1 3x3x3)."""
+    _build.require_no_grad("conv3d_k3s2", x, k)
     if not config.launches_kernel("conv3d_s2", x):
         return conv3d_s2_plain(x, k)
     _build.require_cuda("conv3d_k3s2", x, k)
@@ -112,6 +157,7 @@ def deconv3d_k3s2_ok(x, k) -> bool:
 
 def deconv3d_k3s2_kernel(x: torch.Tensor, k: torch.Tensor) -> torch.Tensor:
     """Kernel D wrapper (k3 s2 transposed conv, Cin 64 -> Cout 32)."""
+    _build.require_no_grad("deconv3d_k3s2", x, k)
     if not config.launches_kernel("deconv3d", x):
         return deconv3d_k3s2_plain(x, k)
     _build.require_cuda("deconv3d_k3s2", x, k)
@@ -125,19 +171,124 @@ def deconv3d_k3s2_kernel(x: torch.Tensor, k: torch.Tensor) -> torch.Tensor:
     return y
 
 
+def conv3d_dk_k3(x: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
+    """Kernel F wrapper: dK (3,3,3,C,Co) float32 of the stride-1 SAME conv
+    from x (N,D,H,W,C) and the cotangent g (N,D,H,W,Co), C, Co in {32, 64}."""
+    _build.require_no_grad("conv3d_dk_k3", x, g)
+    if not config.launches_kernel("conv3d", x):
+        return conv3d_dk_plain(x, g)
+    _build.require_cuda("conv3d_dk_k3", x, g)
+    if not (x.dim() == 5 and g.dim() == 5 and g.shape[:4] == x.shape[:4]
+            and x.shape[-1] in (32, 64) and g.shape[-1] in (32, 64)):
+        raise ValueError(f"conv3d_dk_k3 takes x (N,D,H,W,C), g (N,D,H,W,Co), C, Co in "
+                         f"{{32, 64}}; got {tuple(x.shape)}, {tuple(g.shape)}")
+    n, d, h, w, c = x.shape
+    co = g.shape[-1]
+    return _build.launch_dk("conv3d_dk_k3", x, g, 27, (n, d, h, w, c, co), n * d * h).reshape(
+        3, 3, 3, c, co)
+
+
+def conv3d_s2_dk_k3(x: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
+    """Kernel G wrapper: dK (3,3,3,C,64) float32 of the stride-2 pad-1 conv
+    from x (N,D,H,W,C), even D/H/W, C in {32, 64}, and the cotangent g
+    (N,D/2,H/2,W/2,64); with the roles swapped, the k3s2 deconv's dW."""
+    _build.require_no_grad("conv3d_dk_k3s2", x, g)
+    if not config.launches_kernel("conv3d_s2", x):
+        return conv3d_s2_dk_plain(x, g)
+    _build.require_cuda("conv3d_dk_k3s2", x, g)
+    if not (x.dim() == 5 and x.shape[-1] in (32, 64) and all(s % 2 == 0 for s in x.shape[1:4])
+            and tuple(g.shape) == (x.shape[0], x.shape[1] // 2, x.shape[2] // 2,
+                                   x.shape[3] // 2, 64)):
+        raise ValueError(f"conv3d_s2_dk_k3 takes x (N,D,H,W,C) with even D/H/W, C in "
+                         f"{{32, 64}}, and g (N,D/2,H/2,W/2,64); got {tuple(x.shape)}, "
+                         f"{tuple(g.shape)}")
+    n, d, h, w, c = x.shape
+    return _build.launch_dk("conv3d_dk_k3s2", x, g, 27, (n, d, h, w, c, 64),
+                            n * (d // 2) * (h // 2)).reshape(3, 3, 3, c, 64)
+
+
+# ------------------------------------------------------ autograd Functions
+
+class _Conv3dK3(torch.autograd.Function):
+    """Kernel B forward; B (dx) and F (dK) backward."""
+
+    @staticmethod
+    def forward(ctx, x, k):
+        ctx.save_for_backward(x, k)
+        return conv3d_k3(x, k)
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, g):
+        x, k = ctx.saved_tensors
+        g = g.contiguous()
+        dx = dk = None
+        if ctx.needs_input_grad[0]:
+            dx = conv3d_k3(g, k.flip((0, 1, 2)).transpose(3, 4).contiguous())
+        if ctx.needs_input_grad[1]:
+            dk = conv3d_dk_k3(x, g).to(k.dtype)
+        return dx, dk
+
+
+class _Conv3dK3S2(torch.autograd.Function):
+    """Kernel C forward; D (dx, C = 32) or the plain deconv (C = 64) and
+    G (dK) backward."""
+
+    @staticmethod
+    def forward(ctx, x, k):
+        ctx.save_for_backward(x, k)
+        return conv3d_k3s2(x, k)
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, g):
+        x, k = ctx.saved_tensors
+        g = g.contiguous()
+        dx = dk = None
+        if ctx.needs_input_grad[0]:
+            # the stride-2 conv's dx is the k3s2 transposed conv of the
+            # cotangent with the forward kernel, read as (3,3,3,Cout=C,Cin=64)
+            dx = deconv3d_k3s2_kernel(g, k) if deconv3d_k3s2_ok(g, k) \
+                else deconv3d_k3s2_plain(g, k)
+        if ctx.needs_input_grad[1]:
+            dk = conv3d_s2_dk_k3(x, g).to(k.dtype)
+        return dx, dk
+
+
+class _Deconv3dK3S2(torch.autograd.Function):
+    """Kernel D forward; C (d(input)) and G with the roles swapped (dW) backward."""
+
+    @staticmethod
+    def forward(ctx, x, k):
+        ctx.save_for_backward(x, k)
+        return deconv3d_k3s2_kernel(x, k)
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, g):
+        x, k = ctx.saved_tensors
+        g = g.contiguous()
+        dx = dk = None
+        if ctx.needs_input_grad[0]:
+            dx = conv3d_k3s2(g, k)
+        if ctx.needs_input_grad[1]:
+            dk = conv3d_s2_dk_k3(g, x).to(k.dtype)
+        return dx, dk
+
+
 # --------------------------------------------------------------------- ops
 
 def conv3d_same(x: torch.Tensor, k: torch.Tensor) -> torch.Tensor:
     """Stride-1 SAME 3-D conv, x (N,D,H,W,Ci), k (kd,kh,kw,Ci,Co), odd dims."""
     if config.impl["conv3d"] != "plain" and conv3d_k3_ok(x, k):
-        return conv3d_k3(x.contiguous(), k.contiguous())
+        return _Conv3dK3.apply(x.contiguous(), k.contiguous())
     return conv3d_plain(x, k)
 
 
 def conv3d_s2(x: torch.Tensor, k: torch.Tensor) -> torch.Tensor:
     """Stride-2 SAME(p=1) 3x3x3 conv; x (N,D,H,W,Ci) with even D/H/W."""
     if config.impl["conv3d_s2"] != "plain" and conv3d_k3s2_ok(x, k):
-        return conv3d_k3s2(x.contiguous(), k.contiguous())
+        return _Conv3dK3S2.apply(x.contiguous(), k.contiguous())
     return conv3d_s2_plain(x, k)
 
 
@@ -145,5 +296,5 @@ def deconv3d_k3s2(x: torch.Tensor, k: torch.Tensor) -> torch.Tensor:
     """Exact-2x transposed 3-D conv (k=3, s=2, torch geometry p=1 op=1);
     x (N,D,H,W,Ci), k (3,3,3,Co,Ci) — the flax transpose_kernel layout."""
     if config.impl["deconv3d"] != "plain" and deconv3d_k3s2_ok(x, k):
-        return deconv3d_k3s2_kernel(x.contiguous(), k.contiguous())
+        return _Deconv3dK3S2.apply(x.contiguous(), k.contiguous())
     return deconv3d_k3s2_plain(x, k)

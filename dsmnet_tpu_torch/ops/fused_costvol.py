@@ -13,6 +13,13 @@ with A / B the 3-tap H-convolutions of fL / fR against the kernel's left
 volume is never built.  The assembly here is the JAX package's exact
 ``_assemble_jnp`` (:95); its XLA-specific skew and grouped assemblies
 compute the same function and are not ported.
+
+The gradient is the JAX package's hand VJP (``_stem_bwd`` :142, the custom
+VJP of ``_fused_jnp`` :435-452), in plain torch: autograd of the
+assembly's gathers would scatter-add into volume-sized buffers nine
+times, while ``_stem_bwd`` reads the cotangent volume in a few passes (a
+prefix sum over D, one anti-diagonal sum, single rows and columns) and
+works on 2-D maps from there.
 """
 
 from __future__ import annotations
@@ -41,10 +48,14 @@ def _conv_dh(x, k):
 
 
 def _shift_w(x, s: int):
-    """x shifted so out[..., w, :] = x[..., w+s, :], zero padded."""
+    """x shifted so out[..., w, :] = x[..., w+s, :], zero padded.  A shift
+    of W or more gives zeros of x's shape (the JAX helper would pad past
+    W there, which only the backward's shifts by up to D + 1 reach)."""
     if s == 0:
         return x
     w = x.shape[2]
+    if abs(s) >= w:
+        return torch.zeros_like(x)
     if s > 0:
         return F.pad(x[:, :, s:, :], (0, 0, 0, s))
     return F.pad(x[:, :, :w + s, :], (0, 0, -s, 0))
@@ -87,11 +98,136 @@ def _assemble(A, B, D: int, mask_left: bool, dtype):
     return out
 
 
+def _place_w(col, left: int, W: int):
+    """(n, h, L, o) column -> (n, h, W, o) with out[v] = col[v - left]
+    (zero outside); left may be negative."""
+    L = col.shape[2]
+    if left >= 0:
+        seg = col[:, :, :max(0, min(L, W - left))]
+    else:
+        seg = col[:, :, -left:max(-left, min(L, W - left))]
+        left = 0
+    return F.pad(seg, (0, 0, left, W - left - seg.shape[2]))
+
+
+def _stem_bwd(fL, fR, kernel, D: int, mask_left: bool, g):
+    """Hand VJP of the fused volume+conv (JAX ``_stem_bwd``): returns
+    (dfL, dfR, dkernel) in the inputs' dtypes, accumulated in float32
+    (float64 for float64 inputs).
+
+      * left taps: dA[(dd,dw)][w] = sum_{d <= w+dw-dd} g[d, w], a diagonal
+        of ONE prefix sum over D (``cumsum``), with single-row corrections
+        for the d-range exclusions;
+      * right taps: dB[(dd,dw)][v] = sum_d g[d, v+d+dd-dw], a W-shift of ONE
+        anti-diagonal sum T[u] = sum_d g[d, u+d] (skew view + one
+        reduction), minus single-row terms and, for dw = +1, a flipped
+        single-column term (the w-boundary of the assembly)."""
+    acc = torch.promote_types(g.dtype, torch.float32)
+    f = fL.shape[-1]
+    n, h, W = fL.shape[:3]
+    o = kernel.shape[-1]
+    KL = kernel[..., :f, :].to(acc)
+    KR = kernel[..., f:, :].to(acc)
+    S = g.sum(dim=1, dtype=acc)                                  # (n,h,W,o)
+
+    # H-shifted input stacks reused by every tap's kernel gradient
+    fLp, fRp = (F.pad(t, (0, 0, 0, 0, 1, 1)).to(acc) for t in (fL, fR))
+    fLs = torch.stack([fLp[:, kh:kh + h] for kh in range(3)])
+    fRs = torch.stack([fRp[:, kh:kh + h] for kh in range(3)])
+
+    gt = g.transpose(1, 2)                                       # (n,h,D,W,o)
+    row0 = gt[:, :, 0].to(acc)
+    rowN = gt[:, :, D - 1].to(acc)
+    colW = gt[:, :, :, W - 1]                                    # (n,h,D,o)
+
+    # ONE anti-diagonal sum: T[u] = sum_d g[d, u+d], u = j - 2
+    Wp = W + D + 4
+    gp = F.pad(gt, (0, 0, 2, D + 2))
+    flat = F.pad(gp.reshape(n, h, D * Wp, o), (0, 0, 0, D))
+    T = flat.reshape(n, h, D, Wp + 1, o).sum(dim=2, dtype=acc)   # (n,h,Wp+1,o)
+
+    # ONE prefix sum over D + 5 diagonal extractions: E[e][w] = cum[w+e, w]
+    # (0 for w+e < 0, S for w+e > D-1)
+    if mask_left:
+        cflat = torch.cumsum(gt, dim=2, dtype=acc).reshape(n, h, D * W, o)
+        E = {}
+        for e in range(-2, 3):
+            lo = max(0, -e)
+            hi = max(lo, min(W, D - e))
+            s0 = (lo + e) * W + lo
+            part = cflat[:, :, s0:s0 + (hi - lo - 1) * (W + 1) + 1:W + 1] if hi > lo \
+                else cflat.new_zeros((n, h, 0, o))
+            E[e] = torch.cat([cflat.new_zeros((n, h, lo, o)), part, S[:, :, hi:W]], dim=2)
+
+    dfL = torch.zeros(fL.shape, dtype=acc, device=g.device)
+    dfR = torch.zeros(fR.shape, dtype=acc, device=g.device)
+    dKL = torch.zeros(KL.shape, dtype=acc, device=g.device)
+    dKR = torch.zeros(KR.shape, dtype=acc, device=g.device)
+    w_iota = torch.arange(W, device=g.device).view(1, 1, W, 1)
+    zero = torch.zeros((), dtype=acc, device=g.device)
+
+    for i, dd in enumerate((-1, 0, 1)):
+        for k, dw in enumerate((-1, 0, 1)):
+            # left cotangent map: dA = sum_{d in rows} g[d, w], d <= w + e
+            e = dw - dd
+            if mask_left:
+                dA = E[e]
+                if dd == -1:
+                    dA = dA - torch.where(w_iota + e >= 0, row0, zero)
+                elif dd == 1:
+                    dA = torch.where(w_iota + e >= D - 1, S - rowN, dA)
+            else:
+                dA = S - row0 if dd == -1 else S - rowN if dd == 1 else S
+            dC = _shift_w(dA, -dw)                                  # shift_w transpose
+            dfL = dfL + _conv_dh(dC, KL[i, :, k].flip(0).transpose(1, 2))
+            dKL[i, :, k] += torch.einsum("knhwf,nhwo->kfo", fLs, dC.to(fL.dtype).to(acc))
+
+            # right cotangent map: dB[v] = sum_{d in rows} g[d, v+d+delta]
+            # minus the w-boundary term
+            delta = dd - dw
+            dB = T[:, :, delta + 2:delta + 2 + W]
+            if dd == -1:
+                dB = dB - _shift_w(row0, delta)
+            elif dd == 1:
+                dB = dB - _shift_w(rowN, delta + D - 1)
+            if dw == 1:
+                # the skew counted g[d*, W-1] at d* = W-1-v-delta; the
+                # assembly's wext zeroed that column for this tap
+                col = colW
+                if dd in (-1, 1):
+                    col = col.clone()
+                    col[:, :, 0 if dd == -1 else D - 1] = 0
+                dB = dB - _place_w(col.flip(2), W - D - delta, W).to(acc)
+            # dw == -1 hits g[d*, 0] only at (dd=-1, v=0, d*=0), which the
+            # d-range exclusion already removed: no correction
+            dfR = dfR + _conv_dh(dB, KR[i, :, k].flip(0).transpose(1, 2))
+            dKR[i, :, k] += torch.einsum("knhwf,nhwo->kfo", fRs, dB.to(fR.dtype).to(acc))
+
+    dkernel = torch.cat([dKL, dKR], dim=-2).to(kernel.dtype)
+    return dfL.to(fL.dtype), dfR.to(fR.dtype), dkernel
+
+
+class _CostVolumeConv(torch.autograd.Function):
+    """Tap-map forward (``_assemble``) with the hand backward ``_stem_bwd``."""
+
+    @staticmethod
+    def forward(ctx, fL, fR, kernel, D, mask_left):
+        ctx.save_for_backward(fL, fR, kernel)
+        ctx.D, ctx.mask_left = D, mask_left
+        A, B = _tap_maps(fL, fR, kernel)
+        return _assemble(A, B, D, mask_left, fL.dtype)
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, g):
+        fL, fR, kernel = ctx.saved_tensors
+        return (*_stem_bwd(fL, fR, kernel, ctx.D, ctx.mask_left, g.contiguous()), None, None)
+
+
 def cost_volume_conv3x3(fL, fR, kernel, D: int, mask_left: bool = True):
     """Fused volume+conv via the tap-map decomposition.
 
     fL/fR (N,H,W,F); kernel (3,3,3,2F,O) in DHWIO layout; returns
     (N,D,H,W,O) in fL's dtype — equal (up to float association) to
     ``cost_volume_conv3x3_reference``."""
-    A, B = _tap_maps(fL, fR, kernel)
-    return _assemble(A, B, D, mask_left, fL.dtype)
+    return _CostVolumeConv.apply(fL, fR, kernel, D, mask_left)

@@ -13,7 +13,7 @@ import functools
 import numpy as np
 import torch
 
-__all__ = ["interp_matrix", "resize_bilinear"]
+__all__ = ["interp_matrix", "resize_bilinear", "upsample_bilinear"]
 
 
 @functools.lru_cache(maxsize=None)
@@ -52,3 +52,8 @@ def resize_bilinear(x: torch.Tensor, out_hw: tuple[int, int]) -> torch.Tensor:
         return x
     x = torch.einsum("ih,nhwc->niwc", interp_tensor(oh, h, x), x)
     return torch.einsum("jw,niwc->nijc", interp_tensor(ow, w, x), x)
+
+
+def upsample_bilinear(x: torch.Tensor, scale: int) -> torch.Tensor:
+    """Integer-factor align-corners bilinear upsample of NHWC ``x``."""
+    return resize_bilinear(x, (scale * x.shape[1], scale * x.shape[2]))

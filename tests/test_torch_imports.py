@@ -65,6 +65,9 @@ _ENTRY_POINTS = {
                   "cli.main(['--mode', 'deploy', '--maxdisparity', '16',"
                   " '--path_left', 'README.md', '--path_right', 'README.md'])",
     "resolve_device": "from dsmnet_tpu_torch import config\nconfig.resolve_device(None)",
+    "create_train_state": "from dsmnet_tpu_torch.models import create_model\n"
+                          "from dsmnet_tpu_torch.train import create_train_state\n"
+                          "create_train_state(create_model('psmnet', 16))",
 }
 
 
