@@ -6,16 +6,19 @@
 1. Builds the hand-written CUDA kernels from ``dsmnet_tpu_torch/csrc`` and
    prints the card, the versions and the build time.
 2. For each kernel at each shape of its paths: PSMNet serving (384x768,
-   maxdisparity 192, batch 1) for the forward kernels A-D, and the
+   maxdisparity 192, batch 1) for the forward kernels A-D, the
    supervised train step (384x768 crop, batch 4) for A-D in their
-   forward and backward roles and the weight-gradient kernels E-G.  Each
-   shape's bf16 kernel and its f32 instantiation are held against the
-   plain PyTorch version computed in float32 from the same bf16 inputs
-   with TF32 off; E-G must also give the same bits on two launches.  The
-   device time (CUDA graph replays timed with CUDA events) of the kernel,
-   the plain version and one cuDNN call beside the card's bound for the
-   work; also the kernel's eager wall time per call.  Small ragged-edge
-   shapes are checked, not timed.
+   forward and backward roles and the weight-gradient kernels E-G, and
+   the serving of GCNet (A-D, the cost volume H), PSMNet-basic (A, B, H)
+   and DispNetC (the correlation I) at the same size.  Each shape's bf16
+   kernel and its f32 instantiation are held against the plain PyTorch
+   version computed in float32 from the same bf16 inputs with TF32 off;
+   E-G must also give the same bits on two launches, and H, a copy, the
+   plain version's bits.  The device time (CUDA graph replays timed with
+   CUDA events) of the kernel, the plain version and one PyTorch call
+   (cuDNN for the convolutions) beside the card's bound for the work;
+   also the kernel's eager wall time per call.  Small ragged-edge shapes
+   are checked, not timed.
 3. Serving: full-width PSMNet with seeded weights and BN statistics
    calibrated by one train-mode forward: a float32 forward through the
    kernels against the plain path (TF32 off), both against float64; then
@@ -29,9 +32,16 @@
    batch 4, on one fixed batch for TRAIN_STEPS steps: every step's launch
    counts equal the table below, the loss falls, and the median step
    time, frames/s and peak memory are printed; then one profiled step.
-6. One ``{"kernels": [...]}`` line (launches and times per train step; A-D
-   also per request), the card's name and power limit, and last the
-   ``{"ok": true, ...}`` line.
+6. GCNet in float32 through the kernels against the plain path, both
+   against float64, at 192x384 with maxdisparity 96 (``model_gcnet_f32``).
+7. Serving GCNet, PSMNet-basic and DispNetC like PSMNet: a bf16
+   ``Predictor`` at 384x768, maxdisparity 192, answers N_REQUESTS
+   requests, each with the launch counts of SERVE_LAUNCHES; then one
+   profiled request each.
+8. The script's command time, one ``{"kernels": [...]}`` line (launches
+   and times on each kernel's first path, "primary": the train step for
+   A-G, GCNet's request for H, DispNetC's for I; and per path), the card's
+   name and power limit, and last the ``{"ok": true, ...}`` line.
 
 Any failed check raises: the script exits non-zero and prints no result.
 It exits non-zero at once when CUDA is not available.
@@ -81,11 +91,37 @@ MODEL_F32_FACTOR, MODEL_F32_ATOL_PX = 4.0, 1e-3
 # (some of the last head's) is not held below f32 noise, and a wrong tap
 # or index misses by O(1)
 GRAD_F32_FACTOR, GRAD_F32_FLOOR_SHARE = 4.0, 0.1
+# the copy H must give the plain version's bits; the correlation I sums C
+# products of both signs, so, as for dK, its f32 error is measured against
+# the same sum of absolute values, S = |fL| . |fR|: f32 accumulation in
+# another order moves a sum by ~1e-7 S; the bf16 kernel also rounds its
+# output to bf16 (<= 2^-9 |ref|)
+CORR_SCALE_TOL, CORR_BF16_RTOL = 1e-5, 2.0 ** -8
 REQUEST_LAUNCHES = {"conv2d_k3": 8, "conv3d_k3": 12, "conv3d_k3s2": 6, "deconv3d_k3s2": 3}
+# launches per request of the other serving paths at 384x768, maxdisparity
+# 192: GCNet's tower (16 convs in its residual stack + conv2), the 3-D
+# convs l19/l20/l22/l23/l25/l26/l28/l29/l31/l32, the stride-2 l21/l24/l27
+# (l30, 64 -> 128, stays plain), the deconv l36 and the volume;
+# PSMNet-basic's tower once per view (8 convs each), its ten 32-channel
+# 3-D convs and dres0_0 (64 -> 32), and the volume; DispNetC's correlation
+SERVE_LAUNCHES = {
+    "gcnet": {"conv2d_k3": 17, "conv3d_k3": 10, "conv3d_k3s2": 3, "deconv3d_k3s2": 1,
+              "cost_volume": 1},
+    "psmnet_basic": {"conv2d_k3": 16, "conv3d_k3": 11, "cost_volume": 1},
+    "dispnetcorr": {"corr1d": 1},
+}
+SERVE_PATHS = {"gcnet": "serve_gcnet", "psmnet_basic": "serve_psmnet_basic",
+               "dispnetcorr": "serve_dispnetc"}
+# model_gcnet_f32: a size whose float64 pass stays short (~2 TFLOP per pair
+# at 384x768) and whose volume stays even down to l30's input
+GCNET_F32_H, GCNET_F32_W, GCNET_F32_MAXDISP = 192, 384, 96
 # A-D forward plus their backward roles (dx of A and B, the deconv's
 # d(input) on C, the stride-2 conv's dx on D) and the weight gradients
 STEP_LAUNCHES = {"conv2d_k3": 16, "conv3d_k3": 24, "conv3d_k3s2": 9, "deconv3d_k3s2": 6,
                  "conv2d_dk_k3": 8, "conv3d_dk_k3": 12, "conv3d_dk_k3s2": 9}
+
+
+T_START = time.perf_counter()
 
 
 def emit(obj) -> None:
@@ -140,18 +176,25 @@ def host_ms(fn, samples: int = 21, reps: int = 10, warmup: int = 3) -> float:
 
 
 def kernel_specs():
-    """Per kernel: wrapper, plain version, one-call cuDNN yardstick, and the
-    (first operand shape, second operand shape, launches) of each shape on
-    the serving path ("shapes", launches per request) and on the train
-    step ("train", launches per step).  A conv kernel (kind "conv") takes
-    (x, kernel); a weight-gradient kernel (kind "dk") takes (x, cotangent)."""
-    from dsmnet_tpu_torch.ops import conv2d, conv3d
+    """Per kernel: wrapper, plain version, one-call PyTorch yardstick, and
+    per path the (first operand shape, second operand shape, launches per
+    call, extra arguments) of each shape it takes there: "serve" (PSMNet,
+    per request), "train" (PSMNet's train step, per step), "serve_gcnet",
+    "serve_psmnet_basic", "serve_dispnetc" (per request).  "primary" names
+    the path whose launches and times head the kernel's entry in the
+    ``{"kernels": ...}`` line.  A conv kernel (kind "conv") takes (x,
+    kernel); a weight-gradient kernel (kind "dk") (x, cotangent); the
+    volume (kind "copy") and the correlation (kind "corr") (fL, fR, *args)."""
+    from dsmnet_tpu_torch.ops import conv2d, conv3d, corr, cost_volume
 
     D4, H2, W2, H4, W4 = MAXDISP // 4, H // 2, W // 2, H // 4, W // 4
+    D2 = MAXDISP // 2
     B = TRAIN_BATCH
     vol32 = lambda n: (n, D4, H4, W4, 32)
     vol64 = lambda n: (n, D4 // 2, H4 // 2, W4 // 2, 64)
     vol64s = lambda n: (n, D4 // 4, H4 // 4, W4 // 4, 64)
+    # GCNet's volume (1, D2, H2, W2, 64) and its levels 1/2 .. 1/16
+    gc = lambda lvl, c: (1, D2 >> lvl, H2 >> lvl, W2 >> lvl, c)
     k3 = lambda c, co: (3, 3, 3, c, co)
 
     def lib_conv2d(x, k):
@@ -178,111 +221,180 @@ def kernel_specs():
             fmt = torch.channels_last if dims == 2 else torch.channels_last_3d
             w = torch.empty((g.shape[-1], x.shape[-1], *(3,) * dims), dtype=x.dtype,
                             device=x.device).contiguous(memory_format=fmt)
-            xc, gc = x.permute(*to_nc), g.permute(*to_nc)
+            xc, gc_ = x.permute(*to_nc), g.permute(*to_nc)
             return lambda: torch.ops.aten.convolution_backward(
-                gc, xc, w, None, [stride] * dims, [1] * dims, [1] * dims, False, [0] * dims, 1,
+                gc_, xc, w, None, [stride] * dims, [1] * dims, [1] * dims, False, [0] * dims, 1,
                 [False, True, False])
         return make
 
-    def conv_flops(x, k, out):
+    def lib_cost_volume(fL, fR, D, mask_left):
+        """One torch.cat of fL broadcast over d (masked by a (D, 1, W, 1)
+        predicate when mask_left) and the unfolded view of fR padded by D-1
+        columns on the left, flipped so that slice d reads fR[w - d]."""
+        n, h, w, f = fL.shape
+        left = fL[:, None].expand(n, D, h, w, f)
+        if mask_left:
+            keep = (torch.arange(w, device=fL.device)[None, :, None]
+                    >= torch.arange(D, device=fL.device)[:, None, None])[:, None]
+            left_fn = lambda: left * keep
+        else:
+            left_fn = lambda: left
+        right = F.pad(fR, (0, 0, D - 1, 0)).unfold(2, D, 1)  # (N, H, W, F, D)
+        return lambda: torch.cat([left_fn(), right.flip(-1).permute(0, 4, 1, 2, 3)], -1)
+
+    def lib_corr1d(fL, fR, D, stride):
+        """One torch.einsum over the unfolded view of fR padded by (D-1) S
+        columns on the left (shift d at window index (D-1-d) S)."""
+        view = F.pad(fR, (0, 0, (D - 1) * stride, 0)).unfold(2, (D - 1) * stride + 1, 1)
+        view = view[..., ::stride]  # (N, H, W, C, D), shift D-1-e at index e
+        return lambda: torch.einsum("nhwc,nhwce->nhwe", fL, view).flip(-1)
+
+    def conv_flops(x, k, out, *args):
         taps = math.prod(k[:-2])
         return 2 * math.prod(out[:-1]) * taps * k[-2] * k[-1]
 
     def dk_flops(taps):
         # every cotangent position meets every tap
-        return lambda x, g, out: 2 * math.prod(g[:-1]) * taps * x[-1] * g[-1]
+        return lambda x, g, out, *args: 2 * math.prod(g[:-1]) * taps * x[-1] * g[-1]
+
+    def corr_flops(x, y, out, D, stride):
+        # only the products that land inside the image: sum_d (W - d S)+
+        n, h, w, c = x
+        return 2 * n * h * c * sum(max(0, w - d * stride) for d in range(D))
 
     # "edges": small shapes whose H, W (and D) are not multiples of any
     # tile size, so every ragged-edge path of a kernel is held to its plain
     # version as well; checked only, not timed
     return [
         dict(name="conv2d_k3", kind="conv", route="cuda", source="dsmnet_tpu_torch/csrc/conv2d_k3.cu",
-             replaces="dsmnet_tpu/ops/conv2d_pallas.py:183",
+             replaces="dsmnet_tpu/ops/conv2d_pallas.py:183", primary="train",
              kernel=conv2d.conv2d_k3, plain=conv2d.conv2d_k3_plain, library=lib_conv2d,
-             out=lambda x, k: (*x[:-1], k[-1]), flops=conv_flops,
-             shapes=[((2, H2, W2, 32), (3, 3, 32, 32), 8)],
-             # forward and dx (the flipped, channel-swapped kernel)
-             train=[((2 * B, H2, W2, 32), (3, 3, 32, 32), 16)],
+             out=lambda x, k, *a: (*x[:-1], k[-1]), flops=conv_flops,
+             paths={"serve": [((2, H2, W2, 32), (3, 3, 32, 32), 8)],
+                    # forward and dx (the flipped, channel-swapped kernel)
+                    "train": [((2 * B, H2, W2, 32), (3, 3, 32, 32), 16)],
+                    "serve_gcnet": [((2, H2, W2, 32), (3, 3, 32, 32), 17)],
+                    # PSMNet-basic runs its tower once per view
+                    "serve_psmnet_basic": [((1, H2, W2, 32), (3, 3, 32, 32), 16)]},
              edges=[((1, 10, 40, 32), (3, 3, 32, 32))]),
         dict(name="conv3d_k3", kind="conv", route="cuda", source="dsmnet_tpu_torch/csrc/conv3d_k3.cu",
-             replaces="dsmnet_tpu/ops/conv3d_pallas.py:220",
+             replaces="dsmnet_tpu/ops/conv3d_pallas.py:220", primary="train",
              kernel=conv3d.conv3d_k3, plain=conv3d.conv3d_plain, library=lib_conv3d(1),
-             out=lambda x, k: (*x[:-1], k[-1]), flops=conv_flops,
-             shapes=[(vol32(1), k3(32, 32), 6), (vol64(1), k3(64, 64), 3),
-                     (vol64s(1), k3(64, 64), 3)],
-             train=[(vol32(B), k3(32, 32), 12), (vol64(B), k3(64, 64), 6),
-                    (vol64s(B), k3(64, 64), 6)],
+             out=lambda x, k, *a: (*x[:-1], k[-1]), flops=conv_flops,
+             paths={"serve": [(vol32(1), k3(32, 32), 6), (vol64(1), k3(64, 64), 3),
+                              (vol64s(1), k3(64, 64), 3)],
+                    "train": [(vol32(B), k3(32, 32), 12), (vol64(B), k3(64, 64), 6),
+                              (vol64s(B), k3(64, 64), 6)],
+                    "serve_gcnet": [(gc(0, 64), k3(64, 32), 1), (gc(0, 32), k3(32, 32), 1),
+                                    (gc(1, 64), k3(64, 64), 2), (gc(2, 64), k3(64, 64), 2),
+                                    (gc(3, 64), k3(64, 64), 2), (gc(4, 128), k3(128, 128), 2)],
+                    "serve_psmnet_basic": [((1, D4, H4, W4, 64), k3(64, 32), 1),
+                                           (vol32(1), k3(32, 32), 10)]},
              edges=[((1, 5, 10, 40, 32), k3(32, 32)), ((1, 5, 10, 40, 32), k3(32, 64)),
-                    ((1, 5, 9, 20, 64), k3(64, 32)), ((1, 5, 9, 20, 64), k3(64, 64))]),
+                    ((1, 5, 9, 20, 64), k3(64, 32)), ((1, 5, 9, 20, 64), k3(64, 64)),
+                    ((1, 3, 5, 20, 128), k3(128, 128))]),
         dict(name="conv3d_k3s2", kind="conv", route="cuda",
              source="dsmnet_tpu_torch/csrc/conv3d_k3s2.cu",
-             replaces="dsmnet_tpu/ops/conv3d_s2_pallas.py:208",
+             replaces="dsmnet_tpu/ops/conv3d_s2_pallas.py:208", primary="train",
              kernel=conv3d.conv3d_k3s2, plain=conv3d.conv3d_s2_plain, library=lib_conv3d(2),
-             out=lambda x, k: (x[0], x[1] // 2, x[2] // 2, x[3] // 2, k[-1]), flops=conv_flops,
-             shapes=[(vol32(1), k3(32, 64), 3), (vol64(1), k3(64, 64), 3)],
-             # conv1 forward and the conv6 deconv's d(input) share a shape
-             train=[(vol32(B), k3(32, 64), 6), (vol64(B), k3(64, 64), 3)],
+             out=lambda x, k, *a: (x[0], x[1] // 2, x[2] // 2, x[3] // 2, k[-1]),
+             flops=conv_flops,
+             paths={"serve": [(vol32(1), k3(32, 64), 3), (vol64(1), k3(64, 64), 3)],
+                    # conv1 forward and the conv6 deconv's d(input) share a shape
+                    "train": [(vol32(B), k3(32, 64), 6), (vol64(B), k3(64, 64), 3)],
+                    "serve_gcnet": [(gc(0, 64), k3(64, 64), 1), (gc(1, 64), k3(64, 64), 1),
+                                    (gc(2, 64), k3(64, 64), 1)]},
              edges=[((1, 6, 10, 40, 32), k3(32, 64)), ((1, 6, 10, 36, 64), k3(64, 64))]),
         dict(name="deconv3d_k3s2", kind="conv", route="cuda",
              source="dsmnet_tpu_torch/csrc/deconv3d_k3s2.cu",
-             replaces="dsmnet_tpu/ops/conv3d_s2_pallas.py:570",
+             replaces="dsmnet_tpu/ops/conv3d_s2_pallas.py:570", primary="train",
              kernel=conv3d.deconv3d_k3s2_kernel, plain=conv3d.deconv3d_k3s2_plain,
              library=lib_deconv,
-             out=lambda x, k: (x[0], 2 * x[1], 2 * x[2], 2 * x[3], k[3]),
+             out=lambda x, k, *a: (x[0], 2 * x[1], 2 * x[2], 2 * x[3], k[3]),
              # every input voxel meets all 27 taps (the output is exactly 2x)
-             flops=lambda x, k, out: 2 * math.prod(x[:-1]) * 27 * k[3] * k[4],
-             shapes=[(vol64(1), k3(32, 64), 3)],
-             # conv6 forward and the conv1 stride-2 conv's dx share a shape
-             train=[(vol64(B), k3(32, 64), 6)],
+             flops=lambda x, k, out, *a: 2 * math.prod(x[:-1]) * 27 * k[3] * k[4],
+             paths={"serve": [(vol64(1), k3(32, 64), 3)],
+                    # conv6 forward and the conv1 stride-2 conv's dx share a shape
+                    "train": [(vol64(B), k3(32, 64), 6)],
+                    "serve_gcnet": [(gc(1, 64), k3(32, 64), 1)]},
              edges=[((1, 3, 5, 20, 64), k3(32, 64))]),
         dict(name="conv2d_dk_k3", kind="dk", route="cuda",
              source="dsmnet_tpu_torch/csrc/conv2d_dk_k3.cu",
-             replaces="dsmnet_tpu/ops/conv2d_pallas.py:280",
+             replaces="dsmnet_tpu/ops/conv2d_pallas.py:280", primary="train",
              kernel=conv2d.conv2d_dk_k3, plain=conv2d.conv2d_dk_plain,
-             library=lib_wgrad(1, 2), out=lambda x, g: (3, 3, x[-1], g[-1]), flops=dk_flops(9),
-             train=[((2 * B, H2, W2, 32), (2 * B, H2, W2, 32), 8)],
+             library=lib_wgrad(1, 2), out=lambda x, g, *a: (3, 3, x[-1], g[-1]),
+             flops=dk_flops(9),
+             paths={"train": [((2 * B, H2, W2, 32), (2 * B, H2, W2, 32), 8)]},
              edges=[((1, 10, 40, 32), (1, 10, 40, 32))]),
         dict(name="conv3d_dk_k3", kind="dk", route="cuda",
              source="dsmnet_tpu_torch/csrc/conv3d_dk_k3.cu",
-             replaces="dsmnet_tpu/ops/conv3d_pallas.py:341",
+             replaces="dsmnet_tpu/ops/conv3d_pallas.py:341", primary="train",
              kernel=conv3d.conv3d_dk_k3, plain=conv3d.conv3d_dk_plain,
-             library=lib_wgrad(1, 3), out=lambda x, g: (3, 3, 3, x[-1], g[-1]), flops=dk_flops(27),
-             train=[(vol32(B), vol32(B), 6), (vol64(B), vol64(B), 3), (vol64s(B), vol64s(B), 3)],
+             library=lib_wgrad(1, 3), out=lambda x, g, *a: (3, 3, 3, x[-1], g[-1]),
+             flops=dk_flops(27),
+             paths={"train": [(vol32(B), vol32(B), 6), (vol64(B), vol64(B), 3),
+                              (vol64s(B), vol64s(B), 3)]},
              edges=[((1, 5, 10, 40, 32), (1, 5, 10, 40, 32)),
                     ((1, 5, 10, 40, 32), (1, 5, 10, 40, 64)),
                     ((1, 5, 9, 20, 64), (1, 5, 9, 20, 32)),
                     ((1, 5, 9, 20, 64), (1, 5, 9, 20, 64))]),
         dict(name="conv3d_dk_k3s2", kind="dk", route="cuda",
              source="dsmnet_tpu_torch/csrc/conv3d_dk_k3s2.cu",
-             replaces="dsmnet_tpu/ops/conv3d_s2_pallas.py:346",
+             replaces="dsmnet_tpu/ops/conv3d_s2_pallas.py:346", primary="train",
              kernel=conv3d.conv3d_s2_dk_k3, plain=conv3d.conv3d_s2_dk_plain,
-             library=lib_wgrad(2, 3), out=lambda x, g: (3, 3, 3, x[-1], g[-1]), flops=dk_flops(27),
+             library=lib_wgrad(2, 3), out=lambda x, g, *a: (3, 3, 3, x[-1], g[-1]),
+             flops=dk_flops(27),
              # conv1's dK and, roles swapped, the conv6 deconv's dW share a shape
-             train=[(vol32(B), vol64(B), 6), (vol64(B), vol64s(B), 3)],
+             paths={"train": [(vol32(B), vol64(B), 6), (vol64(B), vol64s(B), 3)]},
              edges=[((1, 6, 10, 40, 32), (1, 3, 5, 20, 64)),
                     ((1, 6, 10, 36, 64), (1, 3, 5, 18, 64))]),
+        dict(name="cost_volume", kind="copy", route="cuda",
+             source="dsmnet_tpu_torch/csrc/cost_volume.cu",
+             replaces="dsmnet_tpu/ops/cost_volume.py:76", primary="serve_gcnet",
+             kernel=cost_volume.cost_volume_kernel,
+             plain=cost_volume.concat_cost_volume_reference, library=lib_cost_volume,
+             out=lambda x, y, D, mask_left: (x[0], D, x[1], x[2], 2 * x[3]),
+             flops=lambda *a: 0,
+             paths={"serve_gcnet": [((1, H2, W2, 32), (1, H2, W2, 32), 1, D2, False)],
+                    "serve_psmnet_basic": [((1, H4, W4, 32), (1, H4, W4, 32), 1, D4, True)]},
+             # D >= W, odd H and W, batch 2, both masks
+             edges=[((1, 5, 12, 32), (1, 5, 12, 32), 16, True),
+                    ((1, 5, 12, 32), (1, 5, 12, 32), 16, False),
+                    ((2, 7, 37, 32), (2, 7, 37, 32), 40, True),
+                    ((2, 3, 21, 64), (2, 3, 21, 64), 9, False)]),
+        dict(name="corr1d", kind="corr", route="cuda", source="dsmnet_tpu_torch/csrc/corr1d.cu",
+             replaces="dsmnet_tpu/ops/corr.py:88", primary="serve_dispnetc",
+             kernel=corr.corr1d_kernel, plain=corr.corr1d_plain, library=lib_corr1d,
+             out=lambda x, y, D, stride: (*x[:-1], D), flops=corr_flops,
+             paths={"serve_dispnetc": [((1, H4, W4, 128), (1, H4, W4, 128), 1, 41, 1)]},
+             # W not a multiple of the 64-column tile, D >= W, stride 2
+             edges=[((2, 5, 100, 128), (2, 5, 100, 128), 41, 1),
+                    ((1, 3, 20, 64), (1, 3, 20, 64), 41, 1),
+                    ((1, 4, 70, 128), (1, 4, 70, 128), 41, 2),
+                    ((1, 3, 33, 32), (1, 3, 33, 32), 20, 2)]),
     ]
 
 
 def kernel_inputs(spec, a_shape, b_shape, dev, gen):
     """bf16 activations ~ N(0, 1); for a conv, a He-scaled bf16 kernel, for
-    a weight gradient a bf16 cotangent ~ N(0, 1)."""
+    a weight gradient a bf16 cotangent ~ N(0, 1), for the volume and the
+    correlation the second feature map ~ N(0, 1)."""
     a = torch.randn(a_shape, generator=gen, device=dev).to(torch.bfloat16)
-    scale = 1.0 if spec["kind"] == "dk" else math.sqrt(
-        2.0 / (math.prod(b_shape[:-2]) * b_shape[-1]))
+    scale = math.sqrt(2.0 / (math.prod(b_shape[:-2]) * b_shape[-1])) \
+        if spec["kind"] == "conv" else 1.0
     b = (torch.randn(b_shape, generator=gen, device=dev) * scale).to(torch.bfloat16)
     return a, b
 
 
-def kernel_errors(spec, a, b):
+def kernel_errors(spec, a, b, args=()):
     """The bf16 and f32 kernels against the plain version in f32 (TF32 off)
     on the same bf16 inputs: max errors and counts outside the tolerance."""
-    out_shape = spec["out"](tuple(a.shape), tuple(b.shape))
-    ref = spec["plain"](a.float(), b.float()).float()
-    y = spec["kernel"](a, b)
-    y32 = spec["kernel"](a.float(), b.float())
-    dk = spec["kind"] == "dk"
-    want = torch.float32 if dk else torch.bfloat16
+    kind = spec["kind"]
+    out_shape = spec["out"](tuple(a.shape), tuple(b.shape), *args)
+    ref = spec["plain"](a.float(), b.float(), *args).float()
+    y = spec["kernel"](a, b, *args)
+    y32 = spec["kernel"](a.float(), b.float(), *args)
+    want = torch.float32 if kind == "dk" else torch.bfloat16
     torch.cuda.synchronize()
     for out, dt in ((y, want), (y32, torch.float32)):
         if tuple(out.shape) != tuple(out_shape) or out.dtype != dt:
@@ -290,10 +402,14 @@ def kernel_errors(spec, a, b):
                                f"expected {out_shape} {dt}")
     err = (y.float() - ref).abs()
     err32 = (y32 - ref).abs()
-    if dk:
-        scale = spec["plain"](a.float().abs(), b.float().abs()).float()
-        tol = DK_ATOL + DK_RTOL * scale
-        tol32 = tol
+    if kind in ("dk", "corr"):
+        scale = spec["plain"](a.float().abs(), b.float().abs(), *args).float()
+        tol32 = (DK_ATOL + DK_RTOL * scale) if kind == "dk" else CORR_SCALE_TOL * scale
+        tol = tol32 if kind == "dk" else tol32 + CORR_BF16_RTOL * ref.abs()
+    elif kind == "copy":
+        # the copy must give the plain version's bits in either dtype
+        scale = ref.abs()
+        tol = tol32 = torch.zeros_like(ref)
     else:
         scale = ref.abs()
         tol = BF16_ATOL + BF16_RTOL * scale
@@ -301,18 +417,25 @@ def kernel_errors(spec, a, b):
     res = dict(max_abs_err=err.max().item(), ref_max_abs=ref.abs().max().item(),
                n_outside_tol=(err > tol).sum().item(), f32_max_abs_err=err32.max().item(),
                f32_n_outside_tol=(err32 > tol32).sum().item())
-    if dk:
+    if kind in ("dk", "corr"):
         res["max_err_over_scale"] = (err / scale.clamp(min=1e-30)).max().item()
+    if kind == "copy":
+        res["bit_exact"] = bool(torch.equal(y, spec["plain"](a, b, *args))
+                                and torch.equal(y32, ref))
+    if kind == "dk":
         # a weight gradient is the same bits on every launch
         again = spec["kernel"](a, b)
         torch.cuda.synchronize()
         res["bit_identical"] = bool(torch.equal(y, again))
-    bad = res["n_outside_tol"] or res["f32_n_outside_tol"] or not res.get("bit_identical", True)
+    bad = (res["n_outside_tol"] or res["f32_n_outside_tol"]
+           or not res.get("bit_identical", True) or not res.get("bit_exact", True))
     if bad or not torch.isfinite(y.float()).all():
-        emit({"kernel_failure": {"kernel": spec["name"], "a": list(a.shape), **res}})
-        raise RuntimeError(f"{spec['name']} at {tuple(a.shape)}: {res['n_outside_tol']} bf16 / "
-                           f"{res['f32_n_outside_tol']} f32 outputs outside tolerance, "
-                           f"bit-identical {res.get('bit_identical', 'n/a')}")
+        emit({"kernel_failure": {"kernel": spec["name"], "a": list(a.shape), "args": list(args),
+                                 **res}})
+        raise RuntimeError(f"{spec['name']} at {tuple(a.shape)} {args}: {res['n_outside_tol']} "
+                           f"bf16 / {res['f32_n_outside_tol']} f32 outputs outside tolerance, "
+                           f"bit-identical {res.get('bit_identical', 'n/a')}, "
+                           f"bit-exact {res.get('bit_exact', 'n/a')}")
     return res
 
 
@@ -320,33 +443,40 @@ def tolerance_text(spec) -> str:
     if spec["kind"] == "dk":
         return (f"|dk - ref| <= {DK_ATOL} + {DK_RTOL} (|x|^T |g|), bf16 and f32 kernels; "
                 "two launches bit-identical")
+    if spec["kind"] == "copy":
+        return "bit-exact: the plain version's bits in bf16 and f32"
+    if spec["kind"] == "corr":
+        return (f"|k - ref| <= {CORR_SCALE_TOL} (|fL| . |fR|) + 2^-8 |ref| (f32: "
+                f"{CORR_SCALE_TOL} (|fL| . |fR|))")
     return f"|k - ref| <= {BF16_ATOL} + 2^-8 |ref| (f32: {F32_ATOL} + {F32_RTOL} |ref|)"
 
 
 def check_edges(spec, dev, gen):
     """Ragged-edge shapes: errors only."""
-    rows = [dict(a=list(a_s), b=list(b_s),
-                 **kernel_errors(spec, *kernel_inputs(spec, a_s, b_s, dev, gen)))
-            for a_s, b_s in spec["edges"]]
+    rows = []
+    for a_s, b_s, *args in spec["edges"]:
+        a, b = kernel_inputs(spec, a_s, b_s, dev, gen)
+        rows.append(dict(a=list(a_s), b=list(b_s), args=args,
+                         **kernel_errors(spec, a, b, tuple(args))))
     emit({"kernel_edges": {"kernel": spec["name"], "cases": rows}})
 
 
-def check_kernel(spec, a_shape, b_shape, launches, path, dev, gen):
+def check_kernel(spec, a_shape, b_shape, launches, path, dev, gen, *args):
     """Errors of the bf16 and f32 kernels against the plain f32 reference, and timings."""
     a, b = kernel_inputs(spec, a_shape, b_shape, dev, gen)
-    out_shape = spec["out"](a_shape, b_shape)
-    errs = kernel_errors(spec, a, b)
-    flops = spec["flops"](a_shape, b_shape, out_shape)
+    out_shape = spec["out"](a_shape, b_shape, *args)
+    errs = kernel_errors(spec, a, b, args)
+    flops = spec["flops"](a_shape, b_shape, out_shape, *args)
     out_bytes = (4 if spec["kind"] == "dk" else 2) * math.prod(out_shape)
     nbytes = 2 * (math.prod(a_shape) + math.prod(b_shape)) + out_bytes
     t_flops, t_bytes = flops / PEAK_BF16_FLOPS * 1e3, nbytes / PEAK_BYTES * 1e3
     row = dict(
-        kernel=spec["name"], path=path, a=list(a_shape), b=list(b_shape), out=list(out_shape),
-        launches=launches, **errs, tolerance=tolerance_text(spec),
-        kernel_ms=time_ms(lambda: spec["kernel"](a, b)),
-        kernel_host_ms=host_ms(lambda: spec["kernel"](a, b)),
-        plain_ms=time_ms(lambda: spec["plain"](a, b)),
-        library_ms=time_ms(spec["library"](a, b)),
+        kernel=spec["name"], path=path, a=list(a_shape), b=list(b_shape), args=list(args),
+        out=list(out_shape), launches=launches, **errs, tolerance=tolerance_text(spec),
+        kernel_ms=time_ms(lambda: spec["kernel"](a, b, *args)),
+        kernel_host_ms=host_ms(lambda: spec["kernel"](a, b, *args)),
+        plain_ms=time_ms(lambda: spec["plain"](a, b, *args)),
+        library_ms=time_ms(spec["library"](a, b, *args)),
         bound_ms=max(t_flops, t_bytes), bound_by="operations" if t_flops >= t_bytes else "bytes",
         gflop=flops / 1e9, mbytes=nbytes / 1e6,
     )
@@ -354,11 +484,45 @@ def check_kernel(spec, a_shape, b_shape, launches, path, dev, gen):
     return row
 
 
-def seeded_model(dev):
+def seeded_model(dev, name: str = "psmnet", maxdisp: int | None = None):
     from dsmnet_tpu_torch.models import create_model
 
-    return create_model("psmnet", MAXDISP).reset_parameters(
+    return create_model(name, maxdisp or MAXDISP).reset_parameters(
         torch.Generator().manual_seed(0)).to(dev)
+
+
+def request_pairs(n: int, h: int, w: int):
+    rng = np.random.RandomState(0)
+    return [(rng.rand(h, w, 3).astype(np.float32), rng.rand(h, w, 3).astype(np.float32))
+            for _ in range(n)]
+
+
+def f32_vs_f64(model, iL, iR):
+    """A float32 forward through the kernels (their f32 instantiations) and
+    one on the plain path, both against the float64 plain path: returns the
+    plain float32 outputs, the errors, the kernel launches and whether the
+    kernels' error is inside MODEL_F32_FACTOR x the plain one's + ATOL."""
+    from dsmnet_tpu_torch import config
+    from dsmnet_tpu_torch.ops import _build
+
+    with torch.no_grad():
+        with config.implementation("plain"):
+            ref = model(iL, iR, clamp=True)[1]
+            model64 = copy.deepcopy(model).double()
+            ref64 = model64(iL.double(), iR.double(), clamp=True)[1]
+            del model64
+        _build.reset_launches()
+        out = model(iL, iR, clamp=True)[1]
+        torch.cuda.synchronize()
+    launches = {k: v for k, v in _build.LAUNCHES.items() if v}
+    maxdiff = lambda a, b: [(u.double() - v.double()).abs().max().item() for u, v in zip(a, b)]
+    d_kernel, d_plain, d_pair = maxdiff(out, ref64), maxdiff(ref, ref64), maxdiff(out, ref)
+    row = {"kernels_vs_f64_px": d_kernel, "plain_vs_f64_px": d_plain,
+           "kernels_vs_plain_px": d_pair,
+           "tolerance": f"kernels_vs_f64 <= {MODEL_F32_FACTOR} * plain_vs_f64"
+                        f" + {MODEL_F32_ATOL_PX} px", "launches": launches}
+    ok = all(k <= MODEL_F32_FACTOR * p + MODEL_F32_ATOL_PX for k, p in zip(d_kernel, d_plain))
+    return ref, row, ok
 
 
 def run_model(dev, n_requests: int):
@@ -369,9 +533,7 @@ def run_model(dev, n_requests: int):
     from dsmnet_tpu_torch.serve import Predictor
 
     model = seeded_model(dev)
-    rng = np.random.RandomState(0)
-    pairs = [(rng.rand(H, W, 3).astype(np.float32), rng.rand(H, W, 3).astype(np.float32))
-             for _ in range(n_requests + 1)]
+    pairs = request_pairs(n_requests + 1, H, W)
     iL, iR = (normalize_imagenet(torch.from_numpy(p)[None].to(dev)) for p in pairs[0])
 
     t0 = time.perf_counter()
@@ -381,27 +543,13 @@ def run_model(dev, n_requests: int):
 
     # float32 forward: the four kernels (f32 instantiations) and the plain
     # path, both against the float64 plain path
-    with torch.no_grad():
-        with config.implementation("plain"):
-            ref = model(iL, iR, clamp=True)[1]
-            model64 = copy.deepcopy(model).double()
-            ref64 = model64(iL.double(), iR.double(), clamp=True)[1]
-            del model64
-        _build.reset_launches()
-        out = model(iL, iR, clamp=True)[1]
-        torch.cuda.synchronize()
-    f32_launches = {k: v for k, v in _build.LAUNCHES.items() if v}
-    maxdiff = lambda a, b: [(u.double() - v.double()).abs().max().item() for u, v in zip(a, b)]
-    d_kernel, d_plain, d_pair = maxdiff(out, ref64), maxdiff(ref, ref64), maxdiff(out, ref)
-    emit({"model_f32": {"kernels_vs_f64_px": d_kernel, "plain_vs_f64_px": d_plain,
-                        "kernels_vs_plain_px": d_pair,
-                        "tolerance": f"kernels_vs_f64 <= {MODEL_F32_FACTOR} * plain_vs_f64"
-                                     f" + {MODEL_F32_ATOL_PX} px",
-                        "launches": f32_launches, "calibrate_s": calib_s}})
-    if f32_launches != REQUEST_LAUNCHES:
-        raise RuntimeError(f"f32 forward launches {f32_launches}, expected {REQUEST_LAUNCHES}")
-    if not all(k <= MODEL_F32_FACTOR * p + MODEL_F32_ATOL_PX for k, p in zip(d_kernel, d_plain)):
-        raise RuntimeError(f"f32 kernel path error {d_kernel} px vs plain {d_plain} px")
+    ref, row, ok = f32_vs_f64(model, iL, iR)
+    emit({"model_f32": {**row, "calibrate_s": calib_s}})
+    if row["launches"] != REQUEST_LAUNCHES:
+        raise RuntimeError(f"f32 forward launches {row['launches']}, expected {REQUEST_LAUNCHES}")
+    if not ok:
+        raise RuntimeError(f"f32 kernel path error {row['kernels_vs_f64_px']} px vs plain "
+                           f"{row['plain_vs_f64_px']} px")
 
     # bf16 server: warm-up request, then the counted, timed requests
     server = Predictor(model, device=dev, dtype=torch.bfloat16)
@@ -440,6 +588,78 @@ def run_model(dev, n_requests: int):
     return {k: v // n_requests for k, v in launches.items()}
 
 
+def check_gcnet_f32(dev) -> None:
+    """GCNet in float32 through the kernels against the plain path, both
+    against float64, at GCNET_F32_H x GCNET_F32_W, maxdisparity
+    GCNET_F32_MAXDISP, BN statistics calibrated on the same pair."""
+    from dsmnet_tpu_torch.images import normalize_imagenet
+    from dsmnet_tpu_torch.models.layers import calibrate_batch_stats
+
+    model = seeded_model(dev, "gcnet", GCNET_F32_MAXDISP)
+    pair = request_pairs(1, GCNET_F32_H, GCNET_F32_W)[0]
+    iL, iR = (normalize_imagenet(torch.from_numpy(p)[None].to(dev)) for p in pair)
+    calibrate_batch_stats(model, iL, iR)
+    t0 = time.perf_counter()
+    _, row, ok = f32_vs_f64(model, iL, iR)
+    emit({"model_gcnet_f32": {"pair": [GCNET_F32_H, GCNET_F32_W],
+                              "maxdisparity": GCNET_F32_MAXDISP, **row,
+                              "three_passes_s": time.perf_counter() - t0}})
+    expected = SERVE_LAUNCHES["gcnet"]
+    if row["launches"] != expected:
+        raise RuntimeError(f"GCNet f32 launches {row['launches']}, expected {expected}")
+    if not ok:
+        raise RuntimeError(f"GCNet f32 kernel path error {row['kernels_vs_f64_px']} px vs plain "
+                           f"{row['plain_vs_f64_px']} px")
+
+
+def serve_model(name: str, dev, n_requests: int) -> dict:
+    """A bf16 ``Predictor`` of ``name`` at H x W, maxdisparity MAXDISP, with
+    seeded weights and BN statistics calibrated by one float32 train-mode
+    forward: a warm-up request, then ``n_requests`` counted, timed requests,
+    each of which must launch SERVE_LAUNCHES[name]; then one profiled
+    request.  Returns the launches of one request."""
+    from dsmnet_tpu_torch.images import normalize_imagenet
+    from dsmnet_tpu_torch.models.layers import calibrate_batch_stats
+    from dsmnet_tpu_torch.ops import _build
+    from dsmnet_tpu_torch.serve import Predictor
+
+    path = SERVE_PATHS[name]
+    model = seeded_model(dev, name)
+    pairs = request_pairs(n_requests + 1, H, W)
+    iL, iR = (normalize_imagenet(torch.from_numpy(p)[None].to(dev)) for p in pairs[0])
+    t0 = time.perf_counter()
+    calibrate_batch_stats(model, iL, iR)
+    torch.cuda.synchronize()
+    calib_s = time.perf_counter() - t0
+    server = Predictor(model, device=dev, dtype=torch.bfloat16)
+    server.predict(*pairs[0])
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    latencies, counts = [], []
+    for imL, imR in pairs[1:]:
+        _build.reset_launches()
+        t0 = time.perf_counter()
+        disp = server.predict(imL, imR)  # host numpy: the request has completed
+        latencies.append((time.perf_counter() - t0) * 1e3)
+        counts.append({k: v for k, v in _build.LAUNCHES.items() if v})
+        if disp.shape != (1, H, W) or not np.isfinite(disp).all() \
+                or disp.min() < 1e-6 or disp.max() > MAXDISP:
+            raise RuntimeError(f"{name}: bad answer: shape {disp.shape}, range "
+                               f"[{np.nanmin(disp)}, {np.nanmax(disp)}]")
+    med = statistics.median(latencies)
+    expected = SERVE_LAUNCHES[name]
+    emit({f"{path}_bf16": {
+        "net": name, "requests": n_requests, "pair": [H, W], "maxdisparity": MAXDISP,
+        "latency_ms": latencies, "median_latency_ms": med, "pairs_per_s": 1e3 / med,
+        "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9, "calibrate_s": calib_s,
+        "launches_per_request": counts, "expected_launches_per_request": expected,
+        "answer_range_px": [float(disp.min()), float(disp.max())]}})
+    if any(c != expected for c in counts):
+        raise RuntimeError(f"{name} serving launches {counts}, expected {expected} per request")
+    profile(f"{path}_profile", lambda: server.predict(*pairs[0]))
+    return counts[-1]
+
+
 def profile(tag: str, fn, top: int = 25) -> None:
     """Where one call's time goes: device time by kernel under
     torch.profiler, and the device's busy share of the call's wall time."""
@@ -463,7 +683,8 @@ def profile(tag: str, fn, top: int = 25) -> None:
     kernels.sort(key=lambda r: -r[1])
     device_ms = sum(ms for _, ms, _ in kernels)
     ported_ms = sum(ms for name, ms, _ in kernels if any(
-        s in name for s in ("conv_k3_kernel", "deconv_k3s2_kernel", "dk_k3_kernel", "dk_reduce")))
+        s in name for s in ("conv_k3_kernel", "deconv_k3s2_kernel", "dk_k3_kernel", "dk_reduce",
+                            "cost_volume_kernel", "corr1d_kernel")))
     emit({tag: {"wall_ms": wall_ms, "device_ms": device_ms,
                 "device_busy_share": device_ms / wall_ms, "ported_kernels_ms": ported_ms,
                 "top_kernels_ms_count": kernels[:top]}})
@@ -596,39 +817,46 @@ def main() -> int:
     specs = kernel_specs()
     for s in specs:
         check_edges(s, dev, gen)
-    rows = {(s["name"], path): [check_kernel(s, a, b, n, path, dev, gen)
-                                for a, b, n in s.get(key, [])]
-            for s in specs for path, key in (("serve", "shapes"), ("train", "train"))}
-    serve_launches = run_model(dev, N_REQUESTS)
+    rows = {(s["name"], path): [check_kernel(s, a, b, n, path, dev, gen, *args)
+                                for a, b, n, *args in shapes]
+            for s in specs for path, shapes in s["paths"].items()}
+    launches = {"serve": run_model(dev, N_REQUESTS)}
     check_gradients(dev)
-    step_launches = run_training(dev)
+    launches["train"] = run_training(dev)
+    check_gcnet_f32(dev)
+    for name, path in SERVE_PATHS.items():
+        launches[path] = serve_model(name, dev, N_REQUESTS)
+    # the shapes' launches in kernel_specs must add up to what each path launched
+    for s in specs:
+        for path in launches:
+            table = sum(e[2] for e in s["paths"].get(path, []))
+            if table != launches[path].get(s["name"], 0):
+                raise RuntimeError(f"{s['name']} on {path}: kernel_specs counts {table} "
+                                   f"launches, the run {launches[path].get(s['name'], 0)}")
 
-    def per_call(name, path, key):
-        # sum over the path's shapes of the median per launch x its launches
-        return sum(r[key] * r["launches"] for r in rows[(name, path)])
+    def path_row(name, path):
+        # per call of the path: each shape's median per launch x its launches, summed
+        total = lambda key: sum(r[key] * r["launches"] for r in rows[(name, path)])
+        return dict(launches=launches[path][name], ms=total("kernel_ms"),
+                    plain_ms=total("plain_ms"), bound_ms=total("bound_ms"),
+                    library_ms=total("library_ms"))
 
     kernels = []
     for s in specs:
-        train = rows[(s["name"], "train")]
-        entry = dict(
-            name=s["name"], route=s["route"], source=s["source"], replaces=s["replaces"],
-            launches=step_launches[s["name"]],
-            max_abs_err=max(r["max_abs_err"] for r in train + rows[(s["name"], "serve")]),
-            ms=per_call(s["name"], "train", "kernel_ms"),
-            plain_ms=per_call(s["name"], "train", "plain_ms"),
-            bound_ms=per_call(s["name"], "train", "bound_ms"),
-            bound_by=max(train, key=lambda r: r["bound_ms"] * r["launches"])["bound_by"],
-            library_ms=per_call(s["name"], "train", "library_ms"),
-            per_call_note="launches and ms per train step (bf16, batch 4): each shape's "
-                          "median per launch x its launches per step, summed",
-        )
-        if s.get("shapes"):
-            entry.update(serve_launches=serve_launches[s["name"]],
-                         serve_ms=per_call(s["name"], "serve", "kernel_ms"),
-                         serve_plain_ms=per_call(s["name"], "serve", "plain_ms"),
-                         serve_bound_ms=per_call(s["name"], "serve", "bound_ms"),
-                         serve_library_ms=per_call(s["name"], "serve", "library_ms"))
-        kernels.append(entry)
+        name, primary = s["name"], s["primary"]
+        paths = {path: path_row(name, path) for path in s["paths"]}
+        head = rows[(name, primary)]
+        kernels.append(dict(
+            name=name, route=s["route"], source=s["source"], replaces=s["replaces"],
+            **paths[primary],
+            max_abs_err=max(r["max_abs_err"] for path in s["paths"] for r in rows[(name, path)]),
+            bound_by=max(head, key=lambda r: r["bound_ms"] * r["launches"])["bound_by"],
+            primary=primary,
+            per_call_note=f"launches and ms per call of {primary} (train: a bf16 batch-4 step; "
+                          "serve*: a bf16 384x768 request): each shape's median per launch x "
+                          "its launches, summed; 'paths' holds every path of the kernel",
+            paths=paths))
+    emit({"script_s": time.perf_counter() - T_START})
     emit({"kernels": kernels})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

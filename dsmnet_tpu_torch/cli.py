@@ -2,10 +2,11 @@
 
 Only ``--mode deploy`` is ported (the JAX package's ``dsmnet_tpu/cli.py``
 deploy mode): one stereo pair in, ``dispL.png`` (``dispR.png`` with
-``--flip``) out, written to the current directory.
+``--flip``) out, written to the current directory.  ``--net`` is any
+ported model: psmnet, psmnet_basic, gcnet, dispnet, dispnetcorr.
 
 Usage:
-    python -m dsmnet_tpu_torch.cli --mode deploy --net psmnet \
+    python -m dsmnet_tpu_torch.cli --mode deploy --net gcnet \
         --maxdisparity 192 --path_left 10L.png --path_right 10R.png \
         [--path_weight w.npz] [--device cuda|cpu] [--dtype float32|bfloat16]
 """

@@ -23,9 +23,9 @@ extern "C" int dsm_conv2d_k3(const void* x, const void* w, void* y, int dtype, i
   if (C != 32 || Co != 32) return static_cast<int>(cudaErrorInvalidValue);
   if (dtype == dsm::kBFloat16)
     return static_cast<int>(
-        dsm::launch_conv_k3<bf16, 1, 1, 32, 32, 64, 4, 3>(x, w, y, N, 1, H, W, 1, H, W, st));
+        dsm::launch_conv_k3<bf16, 1, 1, 32, 32, 64, 4, 9>(x, w, y, N, 1, H, W, 1, H, W, st));
   if (dtype == dsm::kFloat32)
     return static_cast<int>(
-        dsm::launch_conv_k3<float, 1, 1, 32, 32, 64, 4, 3>(x, w, y, N, 1, H, W, 1, H, W, st));
+        dsm::launch_conv_k3<float, 1, 1, 32, 32, 64, 4, 9>(x, w, y, N, 1, H, W, 1, H, W, st));
   return static_cast<int>(cudaErrorInvalidValue);
 }

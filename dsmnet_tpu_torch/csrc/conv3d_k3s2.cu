@@ -26,7 +26,7 @@ static cudaError_t conv3d_k3s2(const void* x, const void* w, void* y, int N, int
   // the fastest of a sweep at the serving shapes on an H100
 #define DSM_CASE(CI_, CO_, TM_, RH_)                                                           \
   if (C == CI_ && Co == CO_)                                                                   \
-    return dsm::launch_conv_k3<T, 3, 2, CI_, CO_, TM_, RH_, 1>(x, w, y, N, D, H, W, Do, Ho, Wo, \
+    return dsm::launch_conv_k3<T, 3, 2, CI_, CO_, TM_, RH_, 3>(x, w, y, N, D, H, W, Do, Ho, Wo, \
                                                                st);
   DSM_CASE(32, 64, 32, 8)
   DSM_CASE(64, 64, 16, 4)

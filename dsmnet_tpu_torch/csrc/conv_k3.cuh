@@ -7,7 +7,8 @@
 // slice and all CO channels: M = RH * TM GEMM rows, m = r * TM + j.  Warp
 // w owns the m16 tiles w, w + 4, ... and all CO channels.  For each kd the
 // block stages the NR input rows its outputs read (TM outputs read
-// (TM - 1) * S + 3 columns), then the kernel rows KHG kh at a time, and
+// (TM - 1) * S + 3 columns), then the kernel slices TG taps at a time (9 =
+// the whole kd slice, 3 = one kh row, 1 = one tap, for wide C and CO), and
 // runs the taps: the A operand of tap (kh, kw) is a shifted view of the
 // staged rows, so no im2col buffer is built.  A stride-2 row is staged in
 // two parity planes (even columns, then odd), which keeps every tap's
@@ -18,7 +19,7 @@
 
 namespace dsm {
 
-template <typename T, int KD, int S, int C, int CO, int TM, int RH, int KHG>
+template <typename T, int KD, int S, int C, int CO, int TM, int RH, int TG>
 struct ConvK3 {
   static constexpr int P = pitch<T>(C);
   static constexpr int PB = pitch<T>(CO);
@@ -28,21 +29,21 @@ struct ConvK3 {
   static constexpr int ROW = (S == 1 ? LW : 2 * PLANE) * P;
   static constexpr int NR = (RH - 1) * S + 3;            // input rows staged per kd
   static constexpr int IN_ELEMS = NR * ROW;
-  static constexpr int W_ELEMS = KHG * 3 * C * PB;
+  static constexpr int W_ELEMS = TG * C * PB;
   static constexpr int M = RH * TM;
   static constexpr int MI = M / 16 / kWarps;             // m16 tiles per warp
   static constexpr int NI = CO / 8;                      // n8 tiles per warp
   static constexpr size_t SMEM = max_size((IN_ELEMS + W_ELEMS) * sizeof(T),
                                           static_cast<size_t>(M) * OP * sizeof(float));
   static_assert(TM % 16 == 0 && M % (16 * kWarps) == 0, "tile does not fit the warps");
-  static_assert(C % 16 == 0 && CO % 16 == 0 && (KHG == 1 || KHG == 3), "unsupported widths");
+  static_assert(C % 16 == 0 && CO % 16 == 0 && 9 % TG == 0, "unsupported widths");
 };
 
-template <typename T, int KD, int S, int C, int CO, int TM, int RH, int KHG>
+template <typename T, int KD, int S, int C, int CO, int TM, int RH, int TG>
 __global__ void __launch_bounds__(kThreads)
     conv_k3_kernel(const T* __restrict__ x, const T* __restrict__ w, T* __restrict__ y, int Di,
                    int Hi, int Wi, int Do, int Ho, int Wo) {
-  using Cfg = ConvK3<T, KD, S, C, CO, TM, RH, KHG>;
+  using Cfg = ConvK3<T, KD, S, C, CO, TM, RH, TG>;
   extern __shared__ __align__(128) unsigned char smem[];
   T* s_in = reinterpret_cast<T*>(smem);
   T* s_w = s_in + Cfg::IN_ELEMS;
@@ -68,15 +69,14 @@ __global__ void __launch_bounds__(kThreads)
       stage_row<T, C, S, Cfg::PLANE>(s_in + r * Cfg::ROW, row, valid, m0 * S - 1, Cfg::LW, Wi);
     }
 #pragma unroll 1
-    for (int kh0 = 0; kh0 < 3; kh0 += KHG) {
-      stage_matrix<T, CO>(s_w, w + static_cast<long long>((kd * 3 + kh0) * 3) * C * CO,
-                          KHG * 3 * C);
+    for (int t0 = 0; t0 < 9; t0 += TG) {
+      stage_matrix<T, CO>(s_w, w + static_cast<long long>(kd * 9 + t0) * C * CO, TG * C);
       cp_async_wait_all();
       __syncthreads();
 #pragma unroll 1
-      for (int t = 0; t < KHG * 3; ++t) {
-        const int kh = kh0 + t / 3;
-        const int kw = t % 3;
+      for (int t = 0; t < TG; ++t) {
+        const int kh = (t0 + t) / 3;
+        const int kw = (t0 + t) % 3;
         const int col = S == 1 ? kw : (kw & 1) * Cfg::PLANE + (kw >> 1);
         const T* b = s_w + t * C * Cfg::PB;
 #pragma unroll
@@ -102,11 +102,11 @@ __global__ void __launch_bounds__(kThreads)
   });
 }
 
-template <typename T, int KD, int S, int C, int CO, int TM, int RH, int KHG>
+template <typename T, int KD, int S, int C, int CO, int TM, int RH, int TG>
 cudaError_t launch_conv_k3(const void* x, const void* w, void* y, int N, int Di, int Hi, int Wi,
                            int Do, int Ho, int Wo, cudaStream_t stream) {
-  using Cfg = ConvK3<T, KD, S, C, CO, TM, RH, KHG>;
-  auto kernel = conv_k3_kernel<T, KD, S, C, CO, TM, RH, KHG>;
+  using Cfg = ConvK3<T, KD, S, C, CO, TM, RH, TG>;
+  auto kernel = conv_k3_kernel<T, KD, S, C, CO, TM, RH, TG>;
   static std::atomic<uint32_t> smem_set{0};
   const cudaError_t err = set_smem_once(kernel, Cfg::SMEM, smem_set);
   if (err != cudaSuccess) return err;

@@ -4,7 +4,8 @@ supervised branch of the loss-name DSL and the level-weight curriculum.
 The curriculum sweeps a linearly interpolated one-hot from the coarsest
 to the finest scale over ``maxepoch_weight_adjust`` epochs, with a 0.01
 floor elsewhere (reference loss.py:379-391).  The photometric losses are
-not ported yet (ROADMAP.md queue 1, item 3): their names raise.
+not ported yet (ROADMAP.md queue 1, "Self-supervised path"): their names
+raise.
 """
 
 from __future__ import annotations
@@ -43,7 +44,7 @@ def parse_loss_name(loss_name: str, count_levels: int = 1,
     if any(p in base for p in _PHOTOMETRIC):
         raise NotImplementedError(
             f"loss '{loss_name}' is photometric (self-supervised), which is not ported to "
-            "PyTorch yet: see ROADMAP.md, queue 1, item 3")
+            "PyTorch yet: see ROADMAP.md, queue 1, 'Self-supervised path'")
     raise ValueError(f"unknown loss '{loss_name}'; expected supervised / depthmono / "
                      "SsSMnet / Cap_ds_lr / common with optional -mask suffix")
 

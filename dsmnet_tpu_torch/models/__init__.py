@@ -2,16 +2,25 @@
 
 Every model obeys the JAX package's contract, ``scales, disps =
 model(imL, imR, clamp=...)`` with NHWC images and ``disps[0]`` the
-full-resolution (N, H, W, 1) disparity.  Only PSMNet is ported so far;
-the other models wait in ROADMAP.md's queue of modules to port.
+full-resolution (N, H, W, 1) disparity.  iResNet is not ported yet; it
+waits in ROADMAP.md's queue of modules to port.
 """
 
 from __future__ import annotations
 
+from .dispnet import DispNet, DispNetC
+from .gcnet import GCNet
 from .psmnet import PSMNet
+from .psmnet_basic import PSMNetBasic
 
-MODELS = {"psmnet": PSMNet}
-NOT_PORTED = ("dispnet", "dispnetcorr", "iresnet", "gcnet", "psmnet_basic")
+MODELS = {
+    "dispnet": DispNet,
+    "dispnetcorr": DispNetC,
+    "gcnet": GCNet,
+    "psmnet": PSMNet,
+    "psmnet_basic": PSMNetBasic,
+}
+NOT_PORTED = ("iresnet",)
 
 
 def create_model(name: str, maxdisparity: int = 192):
@@ -26,4 +35,4 @@ def create_model(name: str, maxdisparity: int = 192):
     return MODELS[name](maxdisparity=maxdisparity)
 
 
-__all__ = ["MODELS", "create_model", "PSMNet"]
+__all__ = ["MODELS", "create_model", "DispNet", "DispNetC", "GCNet", "PSMNet", "PSMNetBasic"]

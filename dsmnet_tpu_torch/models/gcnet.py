@@ -1,0 +1,106 @@
+"""GCNet: concat cost volume + 3-D conv hourglass + soft-argmin.
+
+PyTorch counterpart of ``dsmnet_tpu/models/gcnet.py`` (``GCNet``,
+:192-231), on its unfolded pathway (``_Feature3D`` :58-86); the JAX
+folded pathway is a TPU layout of the same math and parameter tree.
+
+  * 2-D features (``layer2d``): 5x5/s2 conv + BN + ReLU, 8 residual
+    blocks, a plain 3x3 conv with bias -> 32 channels at 1/2, both views
+    as one batch-2N pass (``siamese``);
+  * the (N, D, H/2, W/2, 64) concat volume with D = maxdisparity // 2 and
+    the left half dense (``mask_left=False``) on kernel H;
+  * the 3-D hourglass (``layer3d``): stride-2 convs l21/l24/l27/l30, two
+    refine convs at each level, transposed convs l33..l37 with cropped
+    additive skips, every conv and deconv with a bias;
+  * soft-argmin of the negated cost over the maxdisparity bins of l37's
+    output, cropped to the input size.
+
+``forward`` returns ``([0], [disp])`` like the JAX model's ``apply``.
+"""
+
+from __future__ import annotations
+
+import torch
+import torch.nn as nn
+
+from ..ops.cost_volume import concat_cost_volume
+from ..ops.softargmin import soft_argmin
+from .layers import ConvBN, DeconvBN, ResStackGC, crop_add, reset_parameters, siamese
+
+__all__ = ["GCNet"]
+
+_F = 32
+
+
+class _Feature2D(nn.Module):
+    """``gcnet.py:33-41``: 5x5/s2 conv(+BN+ReLU), 8 res blocks, plain 3x3."""
+
+    def __init__(self):
+        super().__init__()
+        self.conv1 = ConvBN(3, _F, 5, 2, bn=True, use_bias=True)
+        self.block1 = ResStackGC(_F, blocks=8)
+        self.conv2 = ConvBN(_F, _F, 3, 1, bn=False, relu=False, use_bias=True)
+
+    def forward(self, x):
+        return self.conv2(self.block1(self.conv1(x)))
+
+
+class _Feature3D(nn.Module):
+    """``gcnet.py:58-86``: the 3-D hourglass over the volume + soft-argmin."""
+
+    _CONVS = (  # name, cin, features, stride
+        ("l19", 2 * _F, _F, 1), ("l20", _F, _F, 1),
+        ("l21", 2 * _F, 2 * _F, 2), ("l22", 2 * _F, 2 * _F, 1), ("l23", 2 * _F, 2 * _F, 1),
+        ("l24", 2 * _F, 2 * _F, 2), ("l25", 2 * _F, 2 * _F, 1), ("l26", 2 * _F, 2 * _F, 1),
+        ("l27", 2 * _F, 2 * _F, 2), ("l28", 2 * _F, 2 * _F, 1), ("l29", 2 * _F, 2 * _F, 1),
+        ("l30", 2 * _F, 4 * _F, 2), ("l31", 4 * _F, 4 * _F, 1), ("l32", 4 * _F, 4 * _F, 1),
+    )
+    _DECONVS = (("l33", 4 * _F, 2 * _F), ("l34", 2 * _F, 2 * _F), ("l35", 2 * _F, 2 * _F),
+                ("l36", 2 * _F, _F))
+
+    def __init__(self):
+        super().__init__()
+        for name, cin, f, s in self._CONVS:
+            self.add_module(name, ConvBN(cin, f, 3, s, dims=3, bn=True, use_bias=True))
+        for name, cin, f in self._DECONVS:
+            self.add_module(name, DeconvBN(cin, f, 3, 2, dims=3, bn=True))
+        self.l37 = DeconvBN(_F, 1, 3, 2, dims=3, bn=False, relu=False)
+
+    def forward(self, vol):
+        x21 = self.l21(vol)
+        x24 = self.l24(x21)
+        x27 = self.l27(x24)
+        x32 = self.l32(self.l31(self.l30(x27)))
+        x33 = crop_add(self.l33(x32), self.l29(self.l28(x27)))
+        x34 = crop_add(self.l34(x33), self.l26(self.l25(x24)))
+        x35 = crop_add(self.l35(x34), self.l23(self.l22(x21)))
+        x36 = crop_add(self.l36(x35), self.l20(self.l19(vol)))
+        # (N, 2D, H, W, 1) -> soft-argmin over the doubled disparity axis
+        return soft_argmin(self.l37(x36)[..., 0], negate=True)
+
+
+class GCNet(nn.Module):
+    """``gcnet.py:192-231``.  Returns a single full-resolution map."""
+
+    count_levels = 1
+
+    def __init__(self, maxdisparity: int = 192):
+        super().__init__()
+        self.maxdisparity = maxdisparity
+        self.layer2d = _Feature2D()
+        self.layer3d = _Feature3D()
+
+    def reset_parameters(self, generator: torch.Generator) -> "GCNet":
+        """Seeded weights: kernels and biases drawn from ``generator``, BN at identity."""
+        return reset_parameters(self, generator)
+
+    def forward(self, imL: torch.Tensor, imR: torch.Tensor, clamp: bool = False):
+        if imL.shape != imR.shape:
+            raise ValueError(f"image shapes differ: {tuple(imL.shape)} vs {tuple(imR.shape)}")
+        fL, fR = siamese(self.layer2d, imL, imR)
+        vol = concat_cost_volume(fL, fR, self.maxdisparity // 2, mask_left=False)
+        h, w = imL.shape[1], imL.shape[2]
+        disp = self.layer3d(vol)[:, :h, :w, :]
+        if clamp:
+            disp = disp.clamp(1e-6, max(self.maxdisparity, w))
+        return [0], [disp]

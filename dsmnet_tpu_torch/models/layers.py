@@ -8,10 +8,10 @@ path for path (``interop.py``).  Initializers follow the reference
 (``conv_kernel_init``, ``torch_fanin_uniform``) and draw from an explicit
 ``torch.Generator``.
 
-Compute dtype: inside ``compute_dtype(torch.bfloat16)`` the convolutions
-and BN normalization run in bf16 while parameters and BN statistics stay
-float32, as in the JAX package (``layers.py:97-112``).  In train mode
-LeanBN backpropagates through its batch statistics without an f32 copy
+Compute dtype: inside ``compute_dtype(torch.bfloat16)`` the convolutions,
+their biases and BN normalization run in bf16 while parameters and BN
+statistics stay float32, as in the JAX package (``layers.py:97-112``).
+In train mode LeanBN backpropagates through its batch statistics without an f32 copy
 of the activation (``_Moments``).
 """
 
@@ -19,6 +19,7 @@ from __future__ import annotations
 
 import contextlib
 import contextvars
+import functools
 import math
 from typing import Callable, Sequence
 
@@ -27,11 +28,12 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from ..ops.conv2d import conv2d_same
-from ..ops.conv3d import conv3d_s2, conv3d_same
+from ..ops.conv3d import conv3d_s2, conv3d_same, deconv3d_k3s2
 
 __all__ = [
-    "compute_dtype", "default_dtype", "conv_kernel_init", "torch_fanin_uniform",
-    "Kernel", "LeanBN", "ConvBN", "ResBlockPSM", "siamese", "crop_add",
+    "compute_dtype", "default_dtype", "conv_kernel_init", "scaled_conv_kernel_init",
+    "torch_fanin_uniform", "fanin_uniform", "Kernel", "LeanBN", "ConvBN", "DeconvBN",
+    "ResBlockPSM", "ResBlockGC", "ResStackGC", "siamese", "crop_add", "crop_cat",
     "reset_parameters", "calibrate_batch_stats",
 ]
 
@@ -58,6 +60,26 @@ def conv_kernel_init(shape, generator: torch.Generator) -> torch.Tensor:
     return torch.randn(shape, generator=generator) * math.sqrt(2.0 / n)
 
 
+def _scaled_kernel(scale: float, shape, generator: torch.Generator) -> torch.Tensor:
+    return conv_kernel_init(shape, generator) * scale
+
+
+def scaled_conv_kernel_init(scale: float) -> Callable:
+    """``conv_kernel_init`` times ``scale`` (DispNet's 0.1-scaled heads,
+    ``layers.py:58``)."""
+    return functools.partial(_scaled_kernel, scale)
+
+
+def _uniform(bound: float, shape, generator: torch.Generator) -> torch.Tensor:
+    return (torch.rand(shape, generator=generator) * 2.0 - 1.0) * bound
+
+
+def fanin_uniform(fan_in: float) -> Callable:
+    """U(-s, s), s = 1/sqrt(fan_in): the JAX package's conv biases and
+    transposed-conv kernels (``_fanin_uniform_bias``, ``layers.py:75-87``)."""
+    return functools.partial(_uniform, 1.0 / math.sqrt(fan_in))
+
+
 def torch_fanin_uniform(shape, generator: torch.Generator) -> torch.Tensor:
     """U(-s, s), s = 1/sqrt(prod(shape[:-2]) * shape[-2]) — for the flax
     transpose kernel (*k, out, in) that fan counts the OUTPUT channels,
@@ -67,21 +89,35 @@ def torch_fanin_uniform(shape, generator: torch.Generator) -> torch.Tensor:
 
 
 class Kernel(nn.Module):
-    """Holder of one conv kernel parameter named ``kernel`` (flax ``Conv_0``)."""
+    """Holder of one conv kernel parameter named ``kernel`` (flax ``Conv_0``
+    or ``ConvTranspose_0``) and, given ``bias_features``, of a ``bias`` over
+    that many output channels, drawn from ``fanin_uniform(bias_fan_in)``."""
 
-    def __init__(self, shape: Sequence[int], init: Callable = conv_kernel_init):
+    def __init__(self, shape: Sequence[int], init: Callable = conv_kernel_init,
+                 bias_features: int | None = None, bias_fan_in: float = 1.0):
         super().__init__()
         self.kernel = nn.Parameter(torch.empty(tuple(shape)))
         self._init = init
+        if bias_features is None:
+            self.register_parameter("bias", None)
+        else:
+            self.bias = nn.Parameter(torch.empty(bias_features))
+            self._bias_init = fanin_uniform(bias_fan_in)
 
     def reset_parameters(self, generator: torch.Generator) -> None:
         with torch.no_grad():
             self.kernel.copy_(self._init(tuple(self.kernel.shape), generator))
+            if self.bias is not None:
+                self.bias.copy_(self._bias_init(tuple(self.bias.shape), generator))
 
     def cast(self, x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
         """(x, kernel) in the compute dtype (or in x's dtype outside a context)."""
         dt = default_dtype() or x.dtype
         return x.to(dt), self.kernel.to(dt)
+
+    def add_bias(self, y: torch.Tensor) -> torch.Tensor:
+        """y plus the bias in y's dtype (the compute dtype), if there is one."""
+        return y if self.bias is None else y + self.bias.to(y.dtype)
 
 
 class _Moments(torch.autograd.Function):
@@ -154,18 +190,23 @@ def _tup(v, n):
 
 
 class ConvBN(nn.Module):
-    """Conv (2-D or 3-D by ``dims``, no bias) + optional LeanBN + optional ReLU.
+    """Conv (2-D or 3-D by ``dims``) + optional bias + optional LeanBN +
+    optional ReLU.
 
     Routing follows ``layers.py:498-518``: 3x3 stride-1 SAME 2-D convs go to
     ``conv2d_same``, stride-1 SAME undilated 3-D convs to ``conv3d_same``,
     3x3x3 stride-2 pad-1 3-D convs on even D/H/W to ``conv3d_s2``; the rest
     (strided or dilated 2-D convs, 1x1 convs) run as plain convolutions.
     ``padding=None`` is torch's (k-1)//2; PSMNet passes padding=dilation,
-    so its 1x1 SPP branch convs pad by 1.
+    so its 1x1 SPP branch convs pad by 1.  ``use_bias`` adds ``Conv_0.bias``
+    after the conv; it defaults to False, where the JAX default is True
+    (``layers.py:473``), so GCNet and DispNet pass it.  ``kernel_scale``
+    scales the kernel's init (DispNet's disparity heads).
     """
 
     def __init__(self, cin: int, features: int, kernel, stride=1, dims: int = 2,
-                 bn: bool = False, relu: bool = True, dilation=1, padding=None):
+                 bn: bool = False, relu: bool = True, dilation=1, padding=None,
+                 use_bias: bool = False, kernel_scale: float = 1.0):
         super().__init__()
         self.dims = dims
         self.k = _tup(kernel, dims)
@@ -174,7 +215,10 @@ class ConvBN(nn.Module):
         self.pad = tuple((kk - 1) // 2 for kk in self.k) if padding is None \
             else _tup(padding, dims)
         self.relu = relu
-        self.Conv_0 = Kernel((*self.k, cin, features))
+        fan_in = math.prod(self.k) * cin
+        init = conv_kernel_init if kernel_scale == 1.0 else scaled_conv_kernel_init(kernel_scale)
+        self.Conv_0 = Kernel((*self.k, cin, features), init,
+                             features if use_bias else None, fan_in)
         self.BatchNorm_0 = LeanBN(features) if bn else None
         same = self.pad == tuple((kk - 1) // 2 for kk in self.k)
         undilated = all(d == 1 for d in self.dil)
@@ -200,7 +244,7 @@ class ConvBN(nn.Module):
         return y.permute(0, 2, 3, 4, 1)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        x = self._conv(*self.Conv_0.cast(x))
+        x = self.Conv_0.add_bias(self._conv(*self.Conv_0.cast(x)))
         if self.BatchNorm_0 is not None:
             x = self.BatchNorm_0(x)
         if self.relu:
@@ -228,6 +272,80 @@ class ResBlockPSM(nn.Module):
         return y + residual
 
 
+class DeconvBN(nn.Module):
+    """Transposed conv + bias + optional LeanBN + optional ReLU, with the
+    torch geometry p = (k-1)//2, op = s - (k - 2p): an exact stride-x
+    upsample (``layers.py:554-607``; every caller keeps JAX's
+    ``use_bias=True``).  ``ConvTranspose_0`` holds the flax (k..., Cout,
+    Cin) kernel and the bias, both drawn U(-s, s), s = 1/sqrt(prod(k) *
+    Cin).  The 3-D k3 s2 deconv goes to
+    ``deconv3d_k3s2``; every other shape (DispNet's 2-D k4 s2) runs as a
+    plain transposed convolution."""
+
+    def __init__(self, cin: int, features: int, kernel, stride=2, dims: int = 2,
+                 bn: bool = False, relu: bool = True):
+        super().__init__()
+        self.dims = dims
+        k, self.s = _tup(kernel, dims), _tup(stride, dims)
+        self.pad = tuple((kk - 1) // 2 for kk in k)
+        self.out_pad = tuple(ss - (kk - 2 * p) for kk, ss, p in zip(k, self.s, self.pad))
+        fan_in = math.prod(k) * cin
+        self.ConvTranspose_0 = Kernel((*k, features, cin), fanin_uniform(fan_in), features,
+                                      fan_in)
+        self.BatchNorm_0 = LeanBN(features) if bn else None
+        self.relu = relu
+        self.k3s2 = dims == 3 and k == (3, 3, 3) and self.s == (2, 2, 2)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x, kern = self.ConvTranspose_0.cast(x)
+        if self.k3s2:
+            y = deconv3d_k3s2(x, kern)
+        else:
+            d = self.dims
+            fn = F.conv_transpose2d if d == 2 else F.conv_transpose3d
+            # (k..., Cout, Cin) -> torch's (Cin, Cout, k...), no flip
+            y = fn(x.movedim(-1, 1), kern.permute(d + 1, d, *range(d)), stride=self.s,
+                   padding=self.pad, output_padding=self.out_pad).movedim(1, -1)
+        y = self.ConvTranspose_0.add_bias(y)
+        if self.BatchNorm_0 is not None:
+            y = self.BatchNorm_0(y)
+        return F.relu(y) if self.relu else y
+
+
+class ResBlockGC(nn.Module):
+    """GCNet-family BasicBlock (``layers.py:610-626``): two 3x3 conv+BN
+    without bias, ReLU after the first and after the residual add (1x1
+    conv+BN downsample when the shape changes)."""
+
+    def __init__(self, cin: int, planes: int, stride: int = 1):
+        super().__init__()
+        self.ConvBN_0 = ConvBN(cin, planes, 3, stride, bn=True, relu=True)
+        self.ConvBN_1 = ConvBN(planes, planes, 3, 1, bn=True, relu=False)
+        self.ConvBN_2 = ConvBN(cin, planes, 1, stride, bn=True, relu=False) \
+            if stride != 1 or cin != planes else None
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        y = self.ConvBN_1(self.ConvBN_0(x))
+        return F.relu(y + (self.ConvBN_2(x) if self.ConvBN_2 is not None else x))
+
+
+class ResStackGC(nn.Module):
+    """Stack of GCNet residual blocks of ``planes`` channels, stride 1,
+    ``ResBlockGC_0`` .. ``_{blocks-1}`` (JAX ``res_stack_gc``,
+    ``layers.py:656-668``)."""
+
+    def __init__(self, planes: int, blocks: int):
+        super().__init__()
+        self.blocks = blocks
+        for i in range(blocks):
+            self.add_module(f"ResBlockGC_{i}", ResBlockGC(planes, planes))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        for i in range(self.blocks):
+            x = getattr(self, f"ResBlockGC_{i}")(x)
+        return x
+
+
 def siamese(tower, imL: torch.Tensor, imR: torch.Tensor):
     """Run a weight-shared tower over both views as ONE batch-2N pass
     (``layers.py:671-684``); in train mode BN statistics pool over both views."""
@@ -241,6 +359,14 @@ def crop_add(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     sl = (slice(None),) + tuple(slice(0, min(a.shape[i], b.shape[i]))
                                 for i in range(1, a.dim() - 1))
     return a[sl] + b[sl]
+
+
+def crop_cat(*xs: torch.Tensor) -> torch.Tensor:
+    """Crop channels-last operands to their common spatial size and
+    concatenate them on channels (``layers.py:687-696``)."""
+    sl = (slice(None),) + tuple(slice(0, min(x.shape[i] for x in xs))
+                                for i in range(1, xs[0].dim() - 1))
+    return torch.cat([x[sl] for x in xs], dim=-1)
 
 
 def reset_parameters(model: nn.Module, generator: torch.Generator) -> nn.Module:

@@ -1,21 +1,26 @@
-"""Ops of PSMNet's serving path, channels-last, with their hand-written kernels."""
+"""Ops of the port's models, channels-last, with their hand-written kernels."""
 
 from .conv2d import conv2d_same
 from .conv3d import conv3d_s2, conv3d_same, deconv3d_k3s2
-from .cost_volume import concat_cost_volume_reference
+from .corr import corr1d
+from .cost_volume import concat_cost_volume, concat_cost_volume_reference
 from .fused_costvol import cost_volume_conv3x3, cost_volume_conv3x3_reference
 from .regression import trilinear_soft_argmin
 from .resize import interp_matrix, resize_bilinear
+from .softargmin import soft_argmin
 
 __all__ = [
     "conv2d_same",
     "conv3d_same",
     "conv3d_s2",
     "deconv3d_k3s2",
+    "corr1d",
+    "concat_cost_volume",
     "concat_cost_volume_reference",
     "cost_volume_conv3x3",
     "cost_volume_conv3x3_reference",
     "trilinear_soft_argmin",
     "interp_matrix",
     "resize_bilinear",
+    "soft_argmin",
 ]

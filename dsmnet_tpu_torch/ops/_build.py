@@ -35,8 +35,10 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-Xptxas=-v")
 
 # kernel name -> (C entry point, device pointers, int arguments).  Forward
-# kernels take (x, w, y, dtype, N, [D,] H, W, C, Co); the weight-gradient
-# kernels take (x, g, dk, workspace, dtype, N, D, H, W, C, Co, chunks).
+# conv kernels take (x, w, y, dtype, N, [D,] H, W, C, Co); the
+# weight-gradient kernels take (x, g, dk, workspace, dtype, N, D, H, W, C,
+# Co, chunks); the cost volume takes (fL, fR, out, dtype, N, H, W, F, D,
+# mask_left), the correlation (fL, fR, out, dtype, N, H, W, C, D, stride).
 ENTRY_POINTS = {
     "conv2d_k3": ("dsm_conv2d_k3", 3, 6),
     "conv3d_k3": ("dsm_conv3d_k3", 3, 7),
@@ -45,6 +47,8 @@ ENTRY_POINTS = {
     "conv2d_dk_k3": ("dsm_conv2d_dk_k3", 4, 8),
     "conv3d_dk_k3": ("dsm_conv3d_dk_k3", 4, 8),
     "conv3d_dk_k3s2": ("dsm_conv3d_dk_k3s2", 4, 8),
+    "cost_volume": ("dsm_cost_volume", 3, 7),
+    "corr1d": ("dsm_corr1d", 3, 7),
 }
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 # A weight-gradient kernel splits the positions into at most DK_CHUNKS
@@ -147,7 +151,8 @@ def require_no_grad(name: str, *tensors: torch.Tensor) -> None:
     if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
         raise RuntimeError(f"kernel {name} got an operand that requires grad outside its "
                            "autograd.Function; call the op (conv2d_same, conv3d_same, "
-                           "conv3d_s2, deconv3d_k3s2) so that the gradient is kept")
+                           "conv3d_s2, deconv3d_k3s2, concat_cost_volume, corr1d) so that "
+                           "the gradient is kept")
 
 
 def require_cuda(name: str, *tensors: torch.Tensor) -> None:
@@ -159,8 +164,8 @@ def require_cuda(name: str, *tensors: torch.Tensor) -> None:
         if t.dtype != dt or dt not in DTYPE_CODES:
             raise TypeError(f"kernel {name} takes float32 or bfloat16 operands of one "
                             f"dtype; got {[u.dtype for u in tensors]}")
-        if not t.is_contiguous():
-            raise ValueError(f"kernel {name} needs contiguous operands")
+        if not t.is_contiguous() or t.data_ptr() % 16:
+            raise ValueError(f"kernel {name} needs contiguous operands aligned to 16 bytes")
         if t.device != tensors[0].device:
             raise RuntimeError(f"kernel {name} operands lie on different devices")
 

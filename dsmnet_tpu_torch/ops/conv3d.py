@@ -6,10 +6,11 @@ VJPs of ``folded.py``).  Three ops; each takes the autograd ``Function``
 below for the shapes the JAX package sends to Pallas, and the plain
 PyTorch version with plain autograd for the rest:
 
-  * ``conv3d_same`` — 3x3x3 stride 1 SAME, C, Co in {32, 64}
-    (``_Conv3dK3``, JAX ``_s1_bwd`` ``folded.py:120-141``): forward and dx
-    on kernel B (``csrc/conv3d_k3.cu``; dx with the flipped,
-    channel-swapped kernel), dK on kernel F (``csrc/conv3d_dk_k3.cu``).
+  * ``conv3d_same`` — 3x3x3 stride 1 SAME, C, Co in {32, 64}, and 128 ->
+    128 (GCNet's l31/l32) (``_Conv3dK3``, JAX ``_s1_bwd``
+    ``folded.py:120-141``): forward and dx on kernel B
+    (``csrc/conv3d_k3.cu``; dx with the flipped, channel-swapped kernel),
+    dK on kernel F (``csrc/conv3d_dk_k3.cu``), plain at 128 channels.
     The Cout=1 classifier head stays plain, as JAX computes it outside
     Pallas (``folded.py:170-206``).
   * ``conv3d_s2`` — 3x3x3 stride 2 pad 1, even D/H/W, C in {32, 64},
@@ -108,7 +109,14 @@ def conv3d_s2_dk_plain(x: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
 
 def conv3d_k3_ok(x, k) -> bool:
     return (x.dim() == 5 and tuple(k.shape[:3]) == (3, 3, 3) and k.dim() == 5
-            and x.shape[-1] == k.shape[3] and k.shape[3] in (32, 64) and k.shape[4] in (32, 64))
+            and x.shape[-1] == k.shape[3]
+            and (tuple(k.shape[3:]) == (128, 128)
+                 or (k.shape[3] in (32, 64) and k.shape[4] in (32, 64))))
+
+
+def conv3d_dk_k3_ok(x, g) -> bool:
+    return (x.dim() == 5 and g.dim() == 5 and g.shape[:4] == x.shape[:4]
+            and x.shape[-1] in (32, 64) and g.shape[-1] in (32, 64))
 
 
 def conv3d_k3(x: torch.Tensor, k: torch.Tensor) -> torch.Tensor:
@@ -119,8 +127,8 @@ def conv3d_k3(x: torch.Tensor, k: torch.Tensor) -> torch.Tensor:
         return conv3d_plain(x, k)
     _build.require_cuda("conv3d_k3", x, k)
     if not conv3d_k3_ok(x, k):
-        raise ValueError(f"conv3d_k3 takes C, Co in {{32, 64}}; got x {tuple(x.shape)}, "
-                         f"k {tuple(k.shape)}")
+        raise ValueError(f"conv3d_k3 takes C, Co in {{32, 64}} or 128 -> 128; got "
+                         f"x {tuple(x.shape)}, k {tuple(k.shape)}")
     n, d, h, w, c = x.shape
     co = k.shape[4]
     y = torch.empty((n, d, h, w, co), dtype=x.dtype, device=x.device)
@@ -178,8 +186,7 @@ def conv3d_dk_k3(x: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
     if not config.launches_kernel("conv3d", x):
         return conv3d_dk_plain(x, g)
     _build.require_cuda("conv3d_dk_k3", x, g)
-    if not (x.dim() == 5 and g.dim() == 5 and g.shape[:4] == x.shape[:4]
-            and x.shape[-1] in (32, 64) and g.shape[-1] in (32, 64)):
+    if not conv3d_dk_k3_ok(x, g):
         raise ValueError(f"conv3d_dk_k3 takes x (N,D,H,W,C), g (N,D,H,W,Co), C, Co in "
                          f"{{32, 64}}; got {tuple(x.shape)}, {tuple(g.shape)}")
     n, d, h, w, c = x.shape
@@ -210,7 +217,8 @@ def conv3d_s2_dk_k3(x: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
 # ------------------------------------------------------ autograd Functions
 
 class _Conv3dK3(torch.autograd.Function):
-    """Kernel B forward; B (dx) and F (dK) backward."""
+    """Kernel B forward; B (dx) and F (dK, C and Co in {32, 64}; plain at
+    128 channels) backward."""
 
     @staticmethod
     def forward(ctx, x, k):
@@ -226,7 +234,8 @@ class _Conv3dK3(torch.autograd.Function):
         if ctx.needs_input_grad[0]:
             dx = conv3d_k3(g, k.flip((0, 1, 2)).transpose(3, 4).contiguous())
         if ctx.needs_input_grad[1]:
-            dk = conv3d_dk_k3(x, g).to(k.dtype)
+            dk = (conv3d_dk_k3(x, g) if conv3d_dk_k3_ok(x, g) else conv3d_dk_plain(x, g)).to(
+                k.dtype)
         return dx, dk
 
 

@@ -1,7 +1,7 @@
 """Training of the port: state, optimizer, supervised steps, metrics.
 
 The trainer (epochs, LR decay, checkpoints) waits in ROADMAP.md
-queue 1, item 6; the self-supervised step in item 3.
+queue 1, "Trainer and CLI"; the self-supervised step in "Self-supervised path".
 """
 
 from .metrics import AverageMeter, d1_epe

@@ -6,7 +6,7 @@ the update of ``torch.optim.Adam(eps=1e-8)`` with its learning rate set
 per step; the step sets it from its ``lr`` argument.  The schedule is the
 reference's epoch-keyed step decay lr = lr0 * 0.5^(((epoch - epoch0) //
 stride) + 1) for epoch >= epoch0 (stereo.py:95-101).  Checkpoint I/O
-comes with the trainer (ROADMAP.md queue 1, item 6).
+comes with the trainer (ROADMAP.md queue 1, "Trainer and CLI").
 
 Unlike the JAX ``TrainState`` (immutable, replaced by each step), this
 one is updated in place: the step writes the model's parameters and BN

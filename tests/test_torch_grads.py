@@ -37,6 +37,8 @@ from dsmnet_tpu_torch import ops as t_ops
 from dsmnet_tpu_torch.ops import _build
 from dsmnet_tpu_torch.ops import conv2d as t_conv2d
 from dsmnet_tpu_torch.ops import conv3d as t_conv3d
+from dsmnet_tpu_torch.ops import corr as t_corr
+from dsmnet_tpu_torch.ops import cost_volume as t_cost_volume
 
 
 @pytest.fixture(autouse=True)
@@ -66,6 +68,9 @@ VJP_CASES = {
                            (1, 3, 5, 6, 64), (3, 3, 3, 64, 64), "_Conv3dK3"),
     "conv3d_same_32to64": (j_conv3d.conv3d_same, _lax_conv3d_same, t_ops.conv3d_same,
                            (1, 3, 4, 5, 32), (3, 3, 3, 32, 64), "_Conv3dK3"),
+    # GCNet's l31/l32: forward and dx on kernel B, dK plain
+    "conv3d_same_128to128": (j_conv3d.conv3d_same, _lax_conv3d_same, t_ops.conv3d_same,
+                             (1, 2, 3, 4, 128), (3, 3, 3, 128, 128), "_Conv3dK3"),
     "conv3d_s2_32to64": (j_conv3d.conv3d_s2, j_conv3d._conv_s2_native, t_ops.conv3d_s2,
                          (1, 4, 6, 8, 32), (3, 3, 3, 32, 64), "_Conv3dK3S2"),
     "conv3d_s2_64to64": (j_conv3d.conv3d_s2, j_conv3d._conv_s2_native, t_ops.conv3d_s2,
@@ -218,6 +223,9 @@ _WRAPPERS = {
     "conv3d_k3s2": (t_conv3d.conv3d_k3s2, (1, 2, 4, 8, 32), (3, 3, 3, 32, 64)),
     "conv3d_s2_dk_k3": (t_conv3d.conv3d_s2_dk_k3, (1, 2, 4, 8, 32), (1, 1, 2, 4, 64)),
     "deconv3d_k3s2": (t_conv3d.deconv3d_k3s2_kernel, (1, 2, 4, 8, 64), (3, 3, 3, 32, 64)),
+    "cost_volume": (lambda a, b: t_cost_volume.cost_volume_kernel(a, b, 4), (1, 4, 8, 32),
+                    (1, 4, 8, 32)),
+    "corr1d": (lambda a, b: t_corr.corr1d_kernel(a, b, 5), (1, 4, 8, 32), (1, 4, 8, 32)),
 }
 
 

@@ -18,7 +18,7 @@ import pytest
 import torch
 
 from dsmnet_tpu_torch import config
-from dsmnet_tpu_torch.ops import _build, conv2d, conv3d
+from dsmnet_tpu_torch.ops import _build, conv2d, conv3d, corr, cost_volume
 
 REPO = Path(__file__).resolve().parent.parent
 
@@ -79,7 +79,8 @@ def test_entry_point_without_cuda_raises(entry):
     assert "CUDA is not available" in res.stderr, res.stderr
 
 
-# op switch -> (kernel wrapper, module holding its plain version, plain name, x, k)
+# op switch -> (kernel wrapper, module holding its plain version, plain name,
+# the shapes of its two operands)
 _WRAPPERS = {
     "conv2d": (conv2d.conv2d_k3, conv2d, "conv2d_k3_plain", (1, 4, 8, 32), (3, 3, 32, 32)),
     "conv3d": (conv3d.conv3d_k3, conv3d, "conv3d_plain", (1, 2, 4, 8, 32), (3, 3, 3, 32, 32)),
@@ -87,6 +88,10 @@ _WRAPPERS = {
                   (3, 3, 3, 32, 64)),
     "deconv3d": (conv3d.deconv3d_k3s2_kernel, conv3d, "deconv3d_k3s2_plain",
                  (1, 2, 4, 8, 64), (3, 3, 3, 32, 64)),
+    "cost_volume": (lambda a, b: cost_volume.cost_volume_kernel(a, b, 4), cost_volume,
+                    "concat_cost_volume_reference", (1, 4, 8, 32), (1, 4, 8, 32)),
+    "corr1d": (lambda a, b: corr.corr1d_kernel(a, b, 5), corr, "corr1d_plain", (1, 4, 8, 32),
+               (1, 4, 8, 32)),
 }
 
 

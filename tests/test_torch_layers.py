@@ -2,7 +2,8 @@
 the flax modules of dsmnet_tpu.models.layers, in float64 on the CPU.
 
 Each case builds the flax module and its port, gives every BN non-trivial
-affine parameters and running statistics, carries the variables across
+affine parameters and running statistics and every conv bias non-zero
+values, carries the variables across
 with ``interop.load_flax_variables`` and compares the outputs in eval and
 in train mode, and in train mode also the updated running statistics
 (flax's biased running variance, momentum 0.9).
@@ -73,6 +74,27 @@ CASES = {
     "resblock_dilation2": (
         lambda train: j_layers.ResBlockPSM(16, 1, 2, name="m"), _one,
         lambda: t_layers.ResBlockPSM(16, 16, 1, 2), lambda m, x: m(x), [(1, 9, 11, 16)]),
+    "convbn_5x5_s2_bias": (
+        lambda train: j_layers.ConvBN(8, 5, 2, bn=True, name="m"), _one,
+        lambda: t_layers.ConvBN(3, 8, 5, 2, bn=True, use_bias=True), lambda m, x: m(x),
+        [(1, 9, 10, 3)]),
+    "convbn3d_bias": (
+        lambda train: j_layers.ConvBN(8, 3, 1, dims=3, bn=True, name="m"), _one,
+        lambda: t_layers.ConvBN(4, 8, 3, 1, dims=3, bn=True, use_bias=True), lambda m, x: m(x),
+        [(1, 3, 5, 6, 4)]),
+    "deconvbn_2d_k4s2": (
+        lambda train: j_layers.DeconvBN(6, 4, 2, bn=True, name="m"), _one,
+        lambda: t_layers.DeconvBN(5, 6, 4, 2, bn=True), lambda m, x: m(x), [(2, 3, 5, 5)]),
+    "deconvbn_3d_k3s2_bn": (
+        lambda train: j_layers.DeconvBN(8, 3, 2, dims=3, bn=True, name="m"), _one,
+        lambda: t_layers.DeconvBN(4, 8, 3, 2, dims=3, bn=True), lambda m, x: m(x),
+        [(1, 2, 3, 5, 4)]),
+    "resblock_gc": (
+        lambda train: j_layers.ResBlockGC(8, 1, name="m"), _one,
+        lambda: t_layers.ResBlockGC(8, 8, 1), lambda m, x: m(x), [(2, 6, 7, 8)]),
+    "resblock_gc_stride2": (
+        lambda train: j_layers.ResBlockGC(8, 2, name="m"), _one,
+        lambda: t_layers.ResBlockGC(4, 8, 2), lambda m, x: m(x), [(1, 7, 9, 4)]),
     "siamese_pooled_stats": (
         lambda train: j_layers.ConvBN(8, 3, 1, use_bias=False, bn=True, name="m"),
         lambda m, xs, t: j_layers.siamese(lambda x, tt: m(x, tt), xs[0], xs[1], t),
@@ -82,7 +104,8 @@ CASES = {
 
 
 def _randomize(variables, rng):
-    """Non-trivial BN parameters and statistics (kernels keep their init)."""
+    """Non-trivial BN parameters, statistics and conv biases (kernels keep
+    their init)."""
     flat = flax.traverse_util.flatten_dict(flax.core.unfreeze(variables))
     out = {}
     for path, v in flat.items():

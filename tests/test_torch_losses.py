@@ -81,7 +81,7 @@ def test_loss_names_curriculum_and_lr_schedule():
     np.testing.assert_array_equal(spec.weights(3), j_losses.parse_loss_name(
         "supervised", 4, 10).weights(3))
     for name in ("depthmono-mask", "SsSMnet", "Cap_ds_lr", "common"):
-        with pytest.raises(NotImplementedError, match="queue 1, item 3"):
+        with pytest.raises(NotImplementedError, match="Self-supervised path"):
             t_losses.parse_loss_name(name)
     with pytest.raises(ValueError, match="unknown loss"):
         t_losses.parse_loss_name("nonsense")
