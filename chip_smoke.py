@@ -9,22 +9,26 @@
    maxdisparity 192, batch 1) for the forward kernels A-D, the
    supervised train step (384x768 crop, batch 4) for A-D in their
    forward and backward roles and the weight-gradient kernels E-G, and
-   the serving of GCNet (A-D, the cost volume H), PSMNet-basic (A, B, H)
-   and DispNetC (the correlation I) at the same size.  Each shape's bf16
-   kernel and its f32 instantiation are held against the plain PyTorch
-   version computed in float32 from the same bf16 inputs with TF32 off;
-   E-G must also give the same bits on two launches, and H, a copy, the
-   plain version's bits.  The device time (CUDA graph replays timed with
+   the serving of GCNet (A-D, the cost volume H), PSMNet-basic (A, B, H),
+   DispNetC and iResNet (the correlation I) at the same size, and the
+   fused stem's assembly J on PSMNet's serving and train-step tap maps.
+   Each shape's bf16 kernel and its f32 instantiation are held against
+   the plain PyTorch version computed in float32 from the same bf16 inputs
+   with TF32 off (J: from the same float32 tap maps, written in bf16 and
+   in f32); E-G must also give the same bits on two launches, and H, a
+   copy, the plain version's bits.  The device time (CUDA graph replays timed with
    CUDA events) of the kernel, the plain version and one PyTorch call
    (cuDNN for the convolutions) beside the card's bound for the work;
    also the kernel's eager wall time per call.  Small ragged-edge shapes
-   are checked, not timed.
+   are checked, not timed.  For the stem also the whole op (tap maps + J)
+   against the op on the plain assembly, and kernel H's volume build
+   beside cuDNN's conv over that volume, which the fused stem replaces.
 3. Serving: full-width PSMNet with seeded weights and BN statistics
    calibrated by one train-mode forward: a float32 forward through the
    kernels against the plain path (TF32 off), both against float64; then
    a bf16 ``Predictor`` answering requests while the launch counters show
-   that every request went through A-D (8/12/6/3 per request), and one
-   profiled request.
+   that every request went through A-D and J (8/12/6/3/1 per request),
+   and one profiled request.
 4. Gradients: one 384x768 pair through a train-mode float32 forward and
    backward on the kernels, every parameter's gradient held against the
    float64 plain model next to the float32 plain path's own error.
@@ -33,14 +37,15 @@
    counts equal the table below, the loss falls, and the median step
    time, frames/s and peak memory are printed; then one profiled step.
 6. GCNet in float32 through the kernels against the plain path, both
-   against float64, at 192x384 with maxdisparity 96 (``model_gcnet_f32``).
-7. Serving GCNet, PSMNet-basic and DispNetC like PSMNet: a bf16
+   against float64, at 192x384 with maxdisparity 96 (``model_gcnet_f32``);
+   iResNet likewise at 384x768, maxdisparity 192 (``model_iresnet_f32``).
+7. Serving GCNet, PSMNet-basic, DispNetC and iResNet like PSMNet: a bf16
    ``Predictor`` at 384x768, maxdisparity 192, answers N_REQUESTS
    requests, each with the launch counts of SERVE_LAUNCHES; then one
    profiled request each.
 8. The script's command time, one ``{"kernels": [...]}`` line (launches
    and times on each kernel's first path, "primary": the train step for
-   A-G, GCNet's request for H, DispNetC's for I; and per path), the card's
+   A-G and J, GCNet's request for H, DispNetC's for I; and per path), the card's
    name and power limit, and last the ``{"ok": true, ...}`` line.
 
 Any failed check raises: the script exits non-zero and prints no result.
@@ -65,6 +70,7 @@ H, W, MAXDISP = 384, 768, 192
 N_REQUESTS = 6
 TRAIN_BATCH, TRAIN_STEPS, TRAIN_LR = 4, 8, 1e-3
 PEAK_BF16_FLOPS = 989e12  # H100 SXM dense bf16 tensor-core rate
+PEAK_F32_FLOPS = 67e12    # H100 SXM float32 outside the tensor cores (J's adds)
 PEAK_BYTES = 3.35e12      # H100 SXM HBM3
 # bf16 kernel vs f32 reference from the same bf16 inputs: the output's
 # bf16 rounding is <= 2^-9 relative and f32 accumulation-order
@@ -97,28 +103,37 @@ GRAD_F32_FACTOR, GRAD_F32_FLOOR_SHARE = 4.0, 0.1
 # another order moves a sum by ~1e-7 S; the bf16 kernel also rounds its
 # output to bf16 (<= 2^-9 |ref|)
 CORR_SCALE_TOL, CORR_BF16_RTOL = 1e-5, 2.0 ** -8
-REQUEST_LAUNCHES = {"conv2d_k3": 8, "conv3d_k3": 12, "conv3d_k3s2": 6, "deconv3d_k3s2": 3}
+# the stem's assembly J sums 18 tap-map values of both signs per output in
+# f32: the same rule as I's, against the same assembly of |A| and |B|
+# (its f32 sums run in the plain version's order, so they should match it
+# to the bit, which the check reports without requiring)
+REQUEST_LAUNCHES = {"conv2d_k3": 8, "conv3d_k3": 12, "conv3d_k3s2": 6, "deconv3d_k3s2": 3,
+                    "fused_costvol": 1}
 # launches per request of the other serving paths at 384x768, maxdisparity
 # 192: GCNet's tower (16 convs in its residual stack + conv2), the 3-D
 # convs l19/l20/l22/l23/l25/l26/l28/l29/l31/l32, the stride-2 l21/l24/l27
 # (l30, 64 -> 128, stays plain), the deconv l36 and the volume;
 # PSMNet-basic's tower once per view (8 convs each), its ten 32-channel
-# 3-D convs and dres0_0 (64 -> 32), and the volume; DispNetC's correlation
+# 3-D convs and dres0_0 (64 -> 32), and the volume; DispNetC's correlation;
+# iResNet's two correlations (D = 81 at 1/4; D = 41, stride 2, at 1/2)
 SERVE_LAUNCHES = {
     "gcnet": {"conv2d_k3": 17, "conv3d_k3": 10, "conv3d_k3s2": 3, "deconv3d_k3s2": 1,
               "cost_volume": 1},
     "psmnet_basic": {"conv2d_k3": 16, "conv3d_k3": 11, "cost_volume": 1},
     "dispnetcorr": {"corr1d": 1},
+    "iresnet": {"corr1d": 2},
 }
 SERVE_PATHS = {"gcnet": "serve_gcnet", "psmnet_basic": "serve_psmnet_basic",
-               "dispnetcorr": "serve_dispnetc"}
+               "dispnetcorr": "serve_dispnetc", "iresnet": "serve_iresnet"}
 # model_gcnet_f32: a size whose float64 pass stays short (~2 TFLOP per pair
 # at 384x768) and whose volume stays even down to l30's input
 GCNET_F32_H, GCNET_F32_W, GCNET_F32_MAXDISP = 192, 384, 96
 # A-D forward plus their backward roles (dx of A and B, the deconv's
-# d(input) on C, the stride-2 conv's dx on D) and the weight gradients
+# d(input) on C, the stride-2 conv's dx on D), the weight gradients and the
+# stem's forward assembly (its backward is plain)
 STEP_LAUNCHES = {"conv2d_k3": 16, "conv3d_k3": 24, "conv3d_k3s2": 9, "deconv3d_k3s2": 6,
-                 "conv2d_dk_k3": 8, "conv3d_dk_k3": 12, "conv3d_dk_k3s2": 9}
+                 "conv2d_dk_k3": 8, "conv3d_dk_k3": 12, "conv3d_dk_k3s2": 9,
+                 "fused_costvol": 1}
 
 
 T_START = time.perf_counter()
@@ -180,12 +195,14 @@ def kernel_specs():
     per path the (first operand shape, second operand shape, launches per
     call, extra arguments) of each shape it takes there: "serve" (PSMNet,
     per request), "train" (PSMNet's train step, per step), "serve_gcnet",
-    "serve_psmnet_basic", "serve_dispnetc" (per request).  "primary" names
-    the path whose launches and times head the kernel's entry in the
-    ``{"kernels": ...}`` line.  A conv kernel (kind "conv") takes (x,
-    kernel); a weight-gradient kernel (kind "dk") (x, cotangent); the
-    volume (kind "copy") and the correlation (kind "corr") (fL, fR, *args)."""
-    from dsmnet_tpu_torch.ops import conv2d, conv3d, corr, cost_volume
+    "serve_psmnet_basic", "serve_dispnetc", "serve_iresnet" (per request).
+    "primary" names the path whose launches and times head the kernel's
+    entry in the ``{"kernels": ...}`` line.  A conv kernel (kind "conv")
+    takes (x, kernel); a weight-gradient kernel (kind "dk") (x, cotangent);
+    the volume (kind "copy") and the correlation (kind "corr") (fL, fR,
+    *args); the stem's assembly (kind "stem") the float32 tap maps (A, B,
+    D, mask_left[, output dtype, bf16 by default])."""
+    from dsmnet_tpu_torch.ops import conv2d, conv3d, corr, cost_volume, fused_costvol
 
     D4, H2, W2, H4, W4 = MAXDISP // 4, H // 2, W // 2, H // 4, W // 4
     D2 = MAXDISP // 2
@@ -249,6 +266,25 @@ def kernel_specs():
         view = view[..., ::stride]  # (N, H, W, C, D), shift D-1-e at index e
         return lambda: torch.einsum("nhwc,nhwce->nhwe", fL, view).flip(-1)
 
+    def lib_stem_conv(a, b, D, mask_left):
+        """cuDNN's 3-D conv (bf16, channels-last) over the (N, D, H, W, 64)
+        volume that kernel H builds from 32-channel features: the work the
+        fused stem replaces (the volume is built outside the timed call)."""
+        n, h, w, o = *a.shape[:3], a.shape[-1] // 9
+        g = torch.Generator(device=a.device).manual_seed(1)
+        fL, fR = (torch.randn((n, h, w, 32), generator=g, device=a.device).to(torch.bfloat16)
+                  for _ in range(2))
+        vol = cost_volume.cost_volume_kernel(fL, fR, D, mask_left).permute(0, 4, 1, 2, 3)
+        wc = (torch.randn((o, 64, 3, 3, 3), generator=g, device=a.device) * 0.03).to(
+            torch.bfloat16).contiguous(memory_format=torch.channels_last_3d)
+        return lambda: F.conv3d(vol, wc, padding=1)
+
+    def stem_kernel(a, b, D, mask_left, dtype=torch.bfloat16):
+        return fused_costvol.cost_volume_conv3x3_kernel(a, b, D, mask_left, dtype)
+
+    def stem_plain(a, b, D, mask_left, dtype=torch.bfloat16):
+        return fused_costvol.assemble_plain(a, b, D, mask_left, dtype)
+
     def conv_flops(x, k, out, *args):
         taps = math.prod(k[:-2])
         return 2 * math.prod(out[:-1]) * taps * k[-2] * k[-1]
@@ -261,6 +297,8 @@ def kernel_specs():
         # only the products that land inside the image: sum_d (W - d S)+
         n, h, w, c = x
         return 2 * n * h * c * sum(max(0, w - d * stride) for d in range(D))
+
+    maps = lambda n, h, w, o=32: (n, h, w, 9 * o)  # a stem tap map: 9 taps of O channels
 
     # "edges": small shapes whose H, W (and D) are not multiples of any
     # tile size, so every ragged-edge path of a kernel is held to its plain
@@ -366,19 +404,46 @@ def kernel_specs():
              replaces="dsmnet_tpu/ops/corr.py:88", primary="serve_dispnetc",
              kernel=corr.corr1d_kernel, plain=corr.corr1d_plain, library=lib_corr1d,
              out=lambda x, y, D, stride: (*x[:-1], D), flops=corr_flops,
-             paths={"serve_dispnetc": [((1, H4, W4, 128), (1, H4, W4, 128), 1, 41, 1)]},
+             paths={"serve_dispnetc": [((1, H4, W4, 128), (1, H4, W4, 128), 1, 41, 1)],
+                    # iResNet: conv2 at 1/4 (D = 81); the shared projection
+                    # of conv1 at 1/2 (D = 41, stride 2)
+                    "serve_iresnet": [((1, H4, W4, 128), (1, H4, W4, 128), 1, 81, 1),
+                                      ((1, H2, W2, 64), (1, H2, W2, 64), 1, 41, 2)]},
              # W not a multiple of the 64-column tile, D >= W, stride 2
              edges=[((2, 5, 100, 128), (2, 5, 100, 128), 41, 1),
                     ((1, 3, 20, 64), (1, 3, 20, 64), 41, 1),
                     ((1, 4, 70, 128), (1, 4, 70, 128), 41, 2),
                     ((1, 3, 33, 32), (1, 3, 33, 32), 20, 2)]),
+        dict(name="fused_costvol", kind="stem", route="cuda",
+             source="dsmnet_tpu_torch/csrc/fused_costvol.cu",
+             replaces="dsmnet_tpu/ops/fused_costvol.py:510", primary="train",
+             kernel=stem_kernel, plain=stem_plain, library=lib_stem_conv,
+             out=lambda a, b, D, mask_left: (a[0], D, a[1], a[2], a[3] // 9),
+             # 18 f32 adds per output
+             flops=lambda a, b, out, *args: 18 * math.prod(out), peak_flops=PEAK_F32_FLOPS,
+             paths={"serve": [(maps(1, H4, W4), maps(1, H4, W4), 1, D4, True)],
+                    "train": [(maps(B, H4, W4), maps(B, H4, W4), 1, D4, True)]},
+             # D > W, odd W, W < 3, D < 3, batch 2, O != 32, unmasked
+             edges=[(maps(1, 3, 5), maps(1, 3, 5), 12, True),
+                    (maps(1, 4, 37), maps(1, 4, 37), 16, True),
+                    (maps(1, 3, 2), maps(1, 3, 2), 4, True),
+                    (maps(1, 3, 20), maps(1, 3, 20), 2, True),
+                    (maps(2, 3, 45), maps(2, 3, 45), 48, True),
+                    (maps(1, 3, 40, 16), maps(1, 3, 40, 16), 10, True),
+                    (maps(1, 2, 30, 12), maps(1, 2, 30, 12), 7, False),
+                    (maps(1, 5, 50), maps(1, 5, 50), 20, False),
+                    (maps(1, 3, 6), maps(1, 3, 6), 11, False)]),
     ]
 
 
 def kernel_inputs(spec, a_shape, b_shape, dev, gen):
     """bf16 activations ~ N(0, 1); for a conv, a He-scaled bf16 kernel, for
     a weight gradient a bf16 cotangent ~ N(0, 1), for the volume and the
-    correlation the second feature map ~ N(0, 1)."""
+    correlation the second feature map ~ N(0, 1); for the stem's assembly
+    two float32 tap maps ~ N(0, 1)."""
+    if spec["kind"] == "stem":
+        return (torch.randn(a_shape, generator=gen, device=dev),
+                torch.randn(b_shape, generator=gen, device=dev))
     a = torch.randn(a_shape, generator=gen, device=dev).to(torch.bfloat16)
     scale = math.sqrt(2.0 / (math.prod(b_shape[:-2]) * b_shape[-1])) \
         if spec["kind"] == "conv" else 1.0
@@ -391,9 +456,11 @@ def kernel_errors(spec, a, b, args=()):
     on the same bf16 inputs: max errors and counts outside the tolerance."""
     kind = spec["kind"]
     out_shape = spec["out"](tuple(a.shape), tuple(b.shape), *args)
-    ref = spec["plain"](a.float(), b.float(), *args).float()
+    # the stem's assembly reads float32 maps and writes bf16 or float32
+    f32 = (torch.float32,) if kind == "stem" else ()
+    ref = spec["plain"](a.float(), b.float(), *args, *f32).float()
     y = spec["kernel"](a, b, *args)
-    y32 = spec["kernel"](a.float(), b.float(), *args)
+    y32 = spec["kernel"](a.float(), b.float(), *args, *f32)
     want = torch.float32 if kind == "dk" else torch.bfloat16
     torch.cuda.synchronize()
     for out, dt in ((y, want), (y32, torch.float32)):
@@ -402,8 +469,8 @@ def kernel_errors(spec, a, b, args=()):
                                f"expected {out_shape} {dt}")
     err = (y.float() - ref).abs()
     err32 = (y32 - ref).abs()
-    if kind in ("dk", "corr"):
-        scale = spec["plain"](a.float().abs(), b.float().abs(), *args).float()
+    if kind in ("dk", "corr", "stem"):
+        scale = spec["plain"](a.float().abs(), b.float().abs(), *args, *f32).float()
         tol32 = (DK_ATOL + DK_RTOL * scale) if kind == "dk" else CORR_SCALE_TOL * scale
         tol = tol32 if kind == "dk" else tol32 + CORR_BF16_RTOL * ref.abs()
     elif kind == "copy":
@@ -417,8 +484,11 @@ def kernel_errors(spec, a, b, args=()):
     res = dict(max_abs_err=err.max().item(), ref_max_abs=ref.abs().max().item(),
                n_outside_tol=(err > tol).sum().item(), f32_max_abs_err=err32.max().item(),
                f32_n_outside_tol=(err32 > tol32).sum().item())
-    if kind in ("dk", "corr"):
+    if kind in ("dk", "corr", "stem"):
         res["max_err_over_scale"] = (err / scale.clamp(min=1e-30)).max().item()
+    if kind == "stem":
+        res["same_bits_as_plain"] = bool(torch.equal(y32, ref)
+                                         and torch.equal(y, spec["plain"](a, b, *args)))
     if kind == "copy":
         res["bit_exact"] = bool(torch.equal(y, spec["plain"](a, b, *args))
                                 and torch.equal(y32, ref))
@@ -448,6 +518,9 @@ def tolerance_text(spec) -> str:
     if spec["kind"] == "corr":
         return (f"|k - ref| <= {CORR_SCALE_TOL} (|fL| . |fR|) + 2^-8 |ref| (f32: "
                 f"{CORR_SCALE_TOL} (|fL| . |fR|))")
+    if spec["kind"] == "stem":
+        return (f"|k - ref| <= {CORR_SCALE_TOL} assembly(|A|, |B|) + 2^-8 |ref| (f32 output: "
+                f"{CORR_SCALE_TOL} assembly(|A|, |B|))")
     return f"|k - ref| <= {BF16_ATOL} + 2^-8 |ref| (f32: {F32_ATOL} + {F32_RTOL} |ref|)"
 
 
@@ -468,8 +541,9 @@ def check_kernel(spec, a_shape, b_shape, launches, path, dev, gen, *args):
     errs = kernel_errors(spec, a, b, args)
     flops = spec["flops"](a_shape, b_shape, out_shape, *args)
     out_bytes = (4 if spec["kind"] == "dk" else 2) * math.prod(out_shape)
-    nbytes = 2 * (math.prod(a_shape) + math.prod(b_shape)) + out_bytes
-    t_flops, t_bytes = flops / PEAK_BF16_FLOPS * 1e3, nbytes / PEAK_BYTES * 1e3
+    nbytes = a.element_size() * (math.prod(a_shape) + math.prod(b_shape)) + out_bytes
+    peak = spec.get("peak_flops", PEAK_BF16_FLOPS)
+    t_flops, t_bytes = flops / peak * 1e3, nbytes / PEAK_BYTES * 1e3
     row = dict(
         kernel=spec["name"], path=path, a=list(a_shape), b=list(b_shape), args=list(args),
         out=list(out_shape), launches=launches, **errs, tolerance=tolerance_text(spec),
@@ -588,28 +662,57 @@ def run_model(dev, n_requests: int):
     return {k: v // n_requests for k, v in launches.items()}
 
 
-def check_gcnet_f32(dev) -> None:
-    """GCNet in float32 through the kernels against the plain path, both
-    against float64, at GCNET_F32_H x GCNET_F32_W, maxdisparity
-    GCNET_F32_MAXDISP, BN statistics calibrated on the same pair."""
+def check_model_f32(dev, name: str, h: int, w: int, maxdisp: int) -> None:
+    """Model ``name`` in float32 through the kernels against the plain path,
+    both against float64, at h x w and ``maxdisp``, BN statistics (where it
+    has BN) calibrated on the same pair (``model_<name>_f32``)."""
     from dsmnet_tpu_torch.images import normalize_imagenet
     from dsmnet_tpu_torch.models.layers import calibrate_batch_stats
 
-    model = seeded_model(dev, "gcnet", GCNET_F32_MAXDISP)
-    pair = request_pairs(1, GCNET_F32_H, GCNET_F32_W)[0]
+    model = seeded_model(dev, name, maxdisp)
+    pair = request_pairs(1, h, w)[0]
     iL, iR = (normalize_imagenet(torch.from_numpy(p)[None].to(dev)) for p in pair)
     calibrate_batch_stats(model, iL, iR)
     t0 = time.perf_counter()
     _, row, ok = f32_vs_f64(model, iL, iR)
-    emit({"model_gcnet_f32": {"pair": [GCNET_F32_H, GCNET_F32_W],
-                              "maxdisparity": GCNET_F32_MAXDISP, **row,
-                              "three_passes_s": time.perf_counter() - t0}})
-    expected = SERVE_LAUNCHES["gcnet"]
+    emit({f"model_{name}_f32": {"pair": [h, w], "maxdisparity": maxdisp, **row,
+                                "three_passes_s": time.perf_counter() - t0}})
+    expected = SERVE_LAUNCHES[name]
     if row["launches"] != expected:
-        raise RuntimeError(f"GCNet f32 launches {row['launches']}, expected {expected}")
+        raise RuntimeError(f"{name} f32 launches {row['launches']}, expected {expected}")
     if not ok:
-        raise RuntimeError(f"GCNet f32 kernel path error {row['kernels_vs_f64_px']} px vs plain "
-                           f"{row['plain_vs_f64_px']} px")
+        raise RuntimeError(f"{name} f32 kernel path error {row['kernels_vs_f64_px']} px vs "
+                           f"plain {row['plain_vs_f64_px']} px")
+
+
+def check_stem_op(dev, gen) -> None:
+    """The whole fused stem in bf16 (the float32 tap maps, then J) at
+    PSMNet's serving and train-step shapes, next to the same op on the
+    plain assembly, to the tap maps alone and to kernel H building the
+    (N, D, H, W, 64) volume that the fused stem never builds."""
+    from dsmnet_tpu_torch import config
+    from dsmnet_tpu_torch.ops import cost_volume, fused_costvol
+
+    D4, H4, W4 = MAXDISP // 4, H // 4, W // 4
+    for path, n in (("serve", 1), ("train", TRAIN_BATCH)):
+        fL, fR = (torch.randn((n, H4, W4, 32), generator=gen, device=dev).to(torch.bfloat16)
+                  for _ in range(2))
+        k = (torch.randn((3, 3, 3, 64, 32), generator=gen, device=dev) * 0.03).to(torch.bfloat16)
+
+        def op():
+            return fused_costvol.cost_volume_conv3x3(fL, fR, k, D4)
+
+        def plain_op():
+            with config.implementation("plain", ops=("fused_costvol",)):
+                return op()
+
+        with torch.no_grad():
+            err = (op().float() - plain_op().float()).abs().max().item()
+            emit({"stem_op": dict(
+                path=path, features=[n, H4, W4, 32], D=D4, op_vs_plain_max_abs_err=err,
+                op_ms=time_ms(op), op_plain_ms=time_ms(plain_op),
+                tap_maps_ms=time_ms(lambda: fused_costvol.tap_maps(fL, fR, k)),
+                volume_h_ms=time_ms(lambda: cost_volume.cost_volume_kernel(fL, fR, D4)))})
 
 
 def serve_model(name: str, dev, n_requests: int) -> dict:
@@ -684,7 +787,7 @@ def profile(tag: str, fn, top: int = 25) -> None:
     device_ms = sum(ms for _, ms, _ in kernels)
     ported_ms = sum(ms for name, ms, _ in kernels if any(
         s in name for s in ("conv_k3_kernel", "deconv_k3s2_kernel", "dk_k3_kernel", "dk_reduce",
-                            "cost_volume_kernel", "corr1d_kernel")))
+                            "cost_volume_kernel", "corr1d_kernel", "fused_costvol_kernel")))
     emit({tag: {"wall_ms": wall_ms, "device_ms": device_ms,
                 "device_busy_share": device_ms / wall_ms, "ported_kernels_ms": ported_ms,
                 "top_kernels_ms_count": kernels[:top]}})
@@ -820,10 +923,12 @@ def main() -> int:
     rows = {(s["name"], path): [check_kernel(s, a, b, n, path, dev, gen, *args)
                                 for a, b, n, *args in shapes]
             for s in specs for path, shapes in s["paths"].items()}
+    check_stem_op(dev, gen)
     launches = {"serve": run_model(dev, N_REQUESTS)}
     check_gradients(dev)
     launches["train"] = run_training(dev)
-    check_gcnet_f32(dev)
+    check_model_f32(dev, "gcnet", GCNET_F32_H, GCNET_F32_W, GCNET_F32_MAXDISP)
+    check_model_f32(dev, "iresnet", H, W, MAXDISP)
     for name, path in SERVE_PATHS.items():
         launches[path] = serve_model(name, dev, N_REQUESTS)
     # the shapes' launches in kernel_specs must add up to what each path launched

@@ -3,7 +3,8 @@
 Only ``--mode deploy`` is ported (the JAX package's ``dsmnet_tpu/cli.py``
 deploy mode): one stereo pair in, ``dispL.png`` (``dispR.png`` with
 ``--flip``) out, written to the current directory.  ``--net`` is any
-ported model: psmnet, psmnet_basic, gcnet, dispnet, dispnetcorr.
+ported model: psmnet, psmnet_basic, gcnet, dispnet, dispnetcorr,
+iresnet.
 
 Usage:
     python -m dsmnet_tpu_torch.cli --mode deploy --net gcnet \

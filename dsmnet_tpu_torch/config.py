@@ -17,7 +17,7 @@ import contextlib
 
 import torch
 
-OPS = ("conv2d", "conv3d", "conv3d_s2", "deconv3d", "cost_volume", "corr1d")
+OPS = ("conv2d", "conv3d", "conv3d_s2", "deconv3d", "cost_volume", "corr1d", "fused_costvol")
 _MODES = (None, "kernel", "plain")
 
 impl: dict[str, str | None] = {op: None for op in OPS}

@@ -2,14 +2,15 @@
 
 Every model obeys the JAX package's contract, ``scales, disps =
 model(imL, imR, clamp=...)`` with NHWC images and ``disps[0]`` the
-full-resolution (N, H, W, 1) disparity.  iResNet is not ported yet; it
-waits in ROADMAP.md's queue of modules to port.
+full-resolution (N, H, W, 1) disparity.  Every model of the JAX zoo is
+ported.
 """
 
 from __future__ import annotations
 
 from .dispnet import DispNet, DispNetC
 from .gcnet import GCNet
+from .iresnet import IResNet
 from .psmnet import PSMNet
 from .psmnet_basic import PSMNetBasic
 
@@ -17,22 +18,19 @@ MODELS = {
     "dispnet": DispNet,
     "dispnetcorr": DispNetC,
     "gcnet": GCNet,
+    "iresnet": IResNet,
     "psmnet": PSMNet,
     "psmnet_basic": PSMNetBasic,
 }
-NOT_PORTED = ("iresnet",)
 
 
 def create_model(name: str, maxdisparity: int = 192):
     """Name -> nn.Module (parameters uninitialized until ``reset_parameters``
     or a weight load)."""
-    if name in NOT_PORTED:
-        raise NotImplementedError(
-            f"model '{name}' is not ported to PyTorch yet: see ROADMAP.md, "
-            "queue 1 (modules to port), 'Remaining models'")
     if name not in MODELS:
         raise ValueError(f"unknown model '{name}'; supported: {sorted(MODELS)}")
     return MODELS[name](maxdisparity=maxdisparity)
 
 
-__all__ = ["MODELS", "create_model", "DispNet", "DispNetC", "GCNet", "PSMNet", "PSMNetBasic"]
+__all__ = ["MODELS", "create_model", "DispNet", "DispNetC", "GCNet", "IResNet", "PSMNet",
+           "PSMNetBasic"]

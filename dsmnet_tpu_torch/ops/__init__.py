@@ -6,8 +6,9 @@ from .corr import corr1d
 from .cost_volume import concat_cost_volume, concat_cost_volume_reference
 from .fused_costvol import cost_volume_conv3x3, cost_volume_conv3x3_reference
 from .regression import trilinear_soft_argmin
-from .resize import interp_matrix, resize_bilinear
+from .resize import interp_matrix, resize_bilinear, upsample2x
 from .softargmin import soft_argmin
+from .warp import imwarp, warp_disparity
 
 __all__ = [
     "conv2d_same",
@@ -22,5 +23,8 @@ __all__ = [
     "trilinear_soft_argmin",
     "interp_matrix",
     "resize_bilinear",
+    "upsample2x",
     "soft_argmin",
+    "imwarp",
+    "warp_disparity",
 ]

@@ -38,7 +38,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 # conv kernels take (x, w, y, dtype, N, [D,] H, W, C, Co); the
 # weight-gradient kernels take (x, g, dk, workspace, dtype, N, D, H, W, C,
 # Co, chunks); the cost volume takes (fL, fR, out, dtype, N, H, W, F, D,
-# mask_left), the correlation (fL, fR, out, dtype, N, H, W, C, D, stride).
+# mask_left), the correlation (fL, fR, out, dtype, N, H, W, C, D, stride),
+# the stem's assembly (A, B, out, dtype of out, N, H, W, O, D, mask_left).
 ENTRY_POINTS = {
     "conv2d_k3": ("dsm_conv2d_k3", 3, 6),
     "conv3d_k3": ("dsm_conv3d_k3", 3, 7),
@@ -49,6 +50,7 @@ ENTRY_POINTS = {
     "conv3d_dk_k3s2": ("dsm_conv3d_dk_k3s2", 4, 8),
     "cost_volume": ("dsm_cost_volume", 3, 7),
     "corr1d": ("dsm_corr1d", 3, 7),
+    "fused_costvol": ("dsm_fused_costvol", 3, 7),
 }
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 # A weight-gradient kernel splits the positions into at most DK_CHUNKS
@@ -151,7 +153,8 @@ def require_no_grad(name: str, *tensors: torch.Tensor) -> None:
     if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
         raise RuntimeError(f"kernel {name} got an operand that requires grad outside its "
                            "autograd.Function; call the op (conv2d_same, conv3d_same, "
-                           "conv3d_s2, deconv3d_k3s2, concat_cost_volume, corr1d) so that "
+                           "conv3d_s2, deconv3d_k3s2, concat_cost_volume, corr1d, "
+                           "cost_volume_conv3x3) so that "
                            "the gradient is kept")
 
 

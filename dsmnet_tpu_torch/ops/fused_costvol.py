@@ -10,9 +10,18 @@ collapses exactly into 2-D "tap maps" that do not depend on d:
 
 with A / B the 3-tap H-convolutions of fL / fR against the kernel's left
 / right channel halves (A also shifted by dw in W).  The 2F-channel
-volume is never built.  The assembly here is the JAX package's exact
-``_assemble_jnp`` (:95); its XLA-specific skew and grouped assemblies
-compute the same function and are not ported.
+volume is never built.
+
+The forward is the JAX package's Pallas path (``_fused_pallas_fwd``
+:510): the tap maps are two H-convolutions with 9*O output channels in
+float32 (``tap_maps``), and on a CUDA tensor kernel J
+(``csrc/fused_costvol.cu``, replaces ``_fused_pallas_fwd`` and its
+boundary patches) assembles them, summing in float32 and rounding once to
+the inputs' dtype.  Its plain version, taken for CPU tensors, is the
+exact per-tap ``_assemble_jnp`` (:95); the XLA-specific skew and grouped
+assemblies compute the same function and are not ported.  JAX keeps its
+XLA assembly by default, measured on a TPU; the port launches its kernel
+for every CUDA tensor.
 
 The gradient is the JAX package's hand VJP (``_stem_bwd`` :142, the custom
 VJP of ``_fused_jnp`` :435-452), in plain torch: autograd of the
@@ -27,10 +36,13 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from .. import config
+from . import _build
 from .conv3d import conv3d_plain
 from .cost_volume import concat_cost_volume_reference
 
-__all__ = ["cost_volume_conv3x3", "cost_volume_conv3x3_reference"]
+__all__ = ["cost_volume_conv3x3", "cost_volume_conv3x3_reference", "cost_volume_conv3x3_kernel",
+           "assemble_plain", "tap_maps"]
 
 _TAPS = [(dd, dw) for dd in (-1, 0, 1) for dw in (-1, 0, 1)]
 
@@ -61,40 +73,63 @@ def _shift_w(x, s: int):
     return F.pad(x[:, :, :w + s, :], (0, 0, -s, 0))
 
 
-def _tap_maps(fL, fR, kernel):
-    """A/B tap maps keyed by (dd, dw).  The nine taps of each half run as
-    one H-convolution with 9*O output channels."""
+def tap_maps(fL, fR, kernel):
+    """The left and right tap maps, (N,H,W,9*O) each: the 3-tap
+    H-convolutions of fL and fR against the kernel's left and right channel
+    halves, tap (dd, dw) in channels [t*O, (t+1)*O), t = 3*(dd+1) + (dw+1),
+    not shifted in W.  In float32 (float64 for float64 inputs): bf16 inputs
+    are widened first, as the Pallas path does (:512-517)."""
+    acc = torch.promote_types(fL.dtype, torch.float32)
     f = fL.shape[-1]
     o = kernel.shape[-1]
+    k = kernel.to(acc)
     # (3 dd, 3 dh, 3 dw, F, O) -> (dh, F, (dd, dw, O))
-    KL = kernel[..., :f, :].permute(1, 3, 0, 2, 4).reshape(3, f, 9 * o)
-    KR = kernel[..., f:, :].permute(1, 3, 0, 2, 4).reshape(3, f, 9 * o)
-    a_all = _conv_dh(fL, KL)
-    b_all = _conv_dh(fR, KR)
-    A, B = {}, {}
+    KL = k[..., :f, :].permute(1, 3, 0, 2, 4).reshape(3, f, 9 * o)
+    KR = k[..., f:, :].permute(1, 3, 0, 2, 4).reshape(3, f, 9 * o)
+    return _conv_dh(fL.to(acc), KL).contiguous(), _conv_dh(fR.to(acc), KR).contiguous()
+
+
+def assemble_plain(a, b, D: int, mask_left: bool, dtype):
+    """Plain version of kernel J: the exact per-tap assembly
+    (``_assemble_jnp``) of the tap maps a, b (N,H,W,9*O) into (N,D,H,W,O),
+    summed in the maps' dtype tap by tap, A before B, and cast to ``dtype``."""
+    n, h, w, o9 = a.shape
+    o = o9 // 9
+    d_iota = torch.arange(D, device=a.device).view(D, 1)
+    w_iota = torch.arange(w, device=a.device).view(1, w)
+    zero = a.new_zeros(())
+    out = a.new_zeros((n, D, h, w, o))
     for t, (dd, dw) in enumerate(_TAPS):
-        A[(dd, dw)] = _shift_w(a_all[..., t * o:(t + 1) * o], dw)
-        B[(dd, dw)] = b_all[..., t * o:(t + 1) * o]
-    return A, B
-
-
-def _assemble(A, B, D: int, mask_left: bool, dtype):
-    """Exact assembly of the tap maps (``_assemble_jnp``)."""
-    n, h, w, o = A[_TAPS[0]].shape
-    dev = A[_TAPS[0]].device
-    d_iota = torch.arange(D, device=dev).view(D, 1)
-    w_iota = torch.arange(w, device=dev).view(1, w)
-    zero = torch.zeros((), dtype=dtype, device=dev)
-    out = torch.zeros((n, D, h, w, o), dtype=dtype, device=dev)
-    for dd, dw in _TAPS:
+        at, bt = a[..., t * o:(t + 1) * o], b[..., t * o:(t + 1) * o]
         dval = (d_iota + dd >= 0) & (d_iota + dd <= D - 1)
         wext = (w_iota + dw >= 0) & (w_iota + dw <= w - 1)
         lmask = dval & (w_iota + dw >= d_iota + dd) if mask_left else dval.expand(D, w)
-        out += torch.where(lmask.view(1, D, 1, w, 1), A[(dd, dw)].unsqueeze(1), zero)
+        out += torch.where(lmask.view(1, D, 1, w, 1), _shift_w(at, dw).unsqueeze(1), zero)
         u = w_iota + dw - (d_iota + dd)
         uval = dval & wext & (u >= 0)
-        bg = B[(dd, dw)][:, :, u.clamp(0, w - 1), :]  # (n, h, D, W, o)
+        bg = bt[:, :, u.clamp(0, w - 1), :]  # (n, h, D, W, o)
         out += torch.where(uval.view(1, 1, D, w, 1), bg, zero).permute(0, 2, 1, 3, 4)
+    return out.to(dtype)
+
+
+def cost_volume_conv3x3_kernel(a, b, D: int, mask_left: bool, dtype):
+    """Kernel J wrapper: the tap maps a, b (N,H,W,9*O) -> (N,D,H,W,O) in
+    ``dtype``.  A CPU tensor takes the plain version; a CUDA tensor
+    launches the kernel or raises.  The kernel takes float32 maps, O a
+    multiple of 4, and writes bf16 or float32."""
+    _build.require_no_grad("fused_costvol", a, b)
+    if not config.launches_kernel("fused_costvol", a):
+        return assemble_plain(a, b, D, mask_left, dtype)
+    _build.require_cuda("fused_costvol", a, b)
+    if (a.dtype != torch.float32 or dtype not in _build.DTYPE_CODES or a.dim() != 4
+            or b.shape != a.shape or a.shape[-1] % 36 or D < 1):
+        raise ValueError(f"fused_costvol takes float32 maps (N,H,W,9*O) of one shape, O a "
+                         f"multiple of 4, D >= 1, and writes bf16 or float32; got "
+                         f"{tuple(a.shape)} {a.dtype}, {tuple(b.shape)}, D={D}, out {dtype}")
+    n, h, w, o9 = a.shape
+    out = torch.empty((n, D, h, w, o9 // 9), dtype=dtype, device=a.device)
+    _build.launch("fused_costvol", a.device, a.data_ptr(), b.data_ptr(), out.data_ptr(),
+                  _build.DTYPE_CODES[dtype], n, h, w, o9 // 9, D, int(mask_left))
     return out
 
 
@@ -208,14 +243,17 @@ def _stem_bwd(fL, fR, kernel, D: int, mask_left: bool, g):
 
 
 class _CostVolumeConv(torch.autograd.Function):
-    """Tap-map forward (``_assemble``) with the hand backward ``_stem_bwd``."""
+    """Tap maps assembled by kernel J (the plain assembly under "plain"),
+    with the hand backward ``_stem_bwd``."""
 
     @staticmethod
     def forward(ctx, fL, fR, kernel, D, mask_left):
         ctx.save_for_backward(fL, fR, kernel)
         ctx.D, ctx.mask_left = D, mask_left
-        A, B = _tap_maps(fL, fR, kernel)
-        return _assemble(A, B, D, mask_left, fL.dtype)
+        a, b = tap_maps(fL, fR, kernel)
+        if config.impl["fused_costvol"] == "plain":
+            return assemble_plain(a, b, D, mask_left, fL.dtype)
+        return cost_volume_conv3x3_kernel(a, b, D, mask_left, fL.dtype)
 
     @staticmethod
     @torch.autograd.function.once_differentiable
@@ -229,5 +267,6 @@ def cost_volume_conv3x3(fL, fR, kernel, D: int, mask_left: bool = True):
 
     fL/fR (N,H,W,F); kernel (3,3,3,2F,O) in DHWIO layout; returns
     (N,D,H,W,O) in fL's dtype — equal (up to float association) to
-    ``cost_volume_conv3x3_reference``."""
+    ``cost_volume_conv3x3_reference``; in bf16 the sums run in float32 and
+    round once."""
     return _CostVolumeConv.apply(fL, fR, kernel, D, mask_left)

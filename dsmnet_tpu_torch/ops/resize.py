@@ -13,7 +13,7 @@ import functools
 import numpy as np
 import torch
 
-__all__ = ["interp_matrix", "resize_bilinear", "upsample_bilinear"]
+__all__ = ["interp_matrix", "resize_bilinear", "upsample2x", "upsample_bilinear"]
 
 
 @functools.lru_cache(maxsize=None)
@@ -57,3 +57,9 @@ def resize_bilinear(x: torch.Tensor, out_hw: tuple[int, int]) -> torch.Tensor:
 def upsample_bilinear(x: torch.Tensor, scale: int) -> torch.Tensor:
     """Integer-factor align-corners bilinear upsample of NHWC ``x``."""
     return resize_bilinear(x, (scale * x.shape[1], scale * x.shape[2]))
+
+
+def upsample2x(x: torch.Tensor) -> torch.Tensor:
+    """2x align-corners bilinear upsample of NHWC ``x`` (torch-0.3
+    ``nn.Upsample(scale_factor=2, mode='bilinear')``)."""
+    return upsample_bilinear(x, 2)

@@ -5,7 +5,7 @@ Counterpart of the JAX package's deploy path (``dsmnet_tpu/cli.py:129-173``:
 a left/right RGB pair in [0, 1]; the answer is the model's full-resolution
 ``disps[0]`` (PSMNet's ``pred3``), clamped to [1e-6, max(maxdisparity, W)].
 Any model of ``models.MODELS`` serves: psmnet, psmnet_basic, gcnet,
-dispnet, dispnetcorr.
+dispnet, dispnetcorr, iresnet.
 """
 
 from __future__ import annotations

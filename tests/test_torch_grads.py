@@ -39,6 +39,7 @@ from dsmnet_tpu_torch.ops import conv2d as t_conv2d
 from dsmnet_tpu_torch.ops import conv3d as t_conv3d
 from dsmnet_tpu_torch.ops import corr as t_corr
 from dsmnet_tpu_torch.ops import cost_volume as t_cost_volume
+from dsmnet_tpu_torch.ops import fused_costvol as t_fused
 
 
 @pytest.fixture(autouse=True)
@@ -226,6 +227,9 @@ _WRAPPERS = {
     "cost_volume": (lambda a, b: t_cost_volume.cost_volume_kernel(a, b, 4), (1, 4, 8, 32),
                     (1, 4, 8, 32)),
     "corr1d": (lambda a, b: t_corr.corr1d_kernel(a, b, 5), (1, 4, 8, 32), (1, 4, 8, 32)),
+    # the stem's assembly takes the two tap maps (N,H,W,9*O)
+    "fused_costvol": (lambda a, b: t_fused.cost_volume_conv3x3_kernel(a, b, 4, True, torch.float32),
+                      (1, 4, 8, 288), (1, 4, 8, 288)),
 }
 
 

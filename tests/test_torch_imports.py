@@ -18,7 +18,7 @@ import pytest
 import torch
 
 from dsmnet_tpu_torch import config
-from dsmnet_tpu_torch.ops import _build, conv2d, conv3d, corr, cost_volume
+from dsmnet_tpu_torch.ops import _build, conv2d, conv3d, corr, cost_volume, fused_costvol
 
 REPO = Path(__file__).resolve().parent.parent
 
@@ -92,6 +92,9 @@ _WRAPPERS = {
                     "concat_cost_volume_reference", (1, 4, 8, 32), (1, 4, 8, 32)),
     "corr1d": (lambda a, b: corr.corr1d_kernel(a, b, 5), corr, "corr1d_plain", (1, 4, 8, 32),
                (1, 4, 8, 32)),
+    "fused_costvol": (lambda a, b: fused_costvol.cost_volume_conv3x3_kernel(
+        a, b, 4, True, torch.float32), fused_costvol, "assemble_plain", (1, 4, 8, 288),
+        (1, 4, 8, 288)),
 }
 
 

@@ -78,6 +78,11 @@ CASES = {
         lambda train: j_layers.ConvBN(8, 5, 2, bn=True, name="m"), _one,
         lambda: t_layers.ConvBN(3, 8, 5, 2, bn=True, use_bias=True), lambda m, x: m(x),
         [(1, 9, 10, 3)]),
+    # iResNet's deconv2_s (its 7x7 s2 and biased 1x1 convs are DispNetC's,
+    # held in the whole-model tests)
+    "deconvbn_2d_k8s4": (
+        lambda train: j_layers.DeconvBN(6, 8, 4, bn=True, name="m"), _one,
+        lambda: t_layers.DeconvBN(5, 6, 8, 4, bn=True), lambda m, x: m(x), [(1, 3, 4, 5)]),
     "convbn3d_bias": (
         lambda train: j_layers.ConvBN(8, 3, 1, dims=3, bn=True, name="m"), _one,
         lambda: t_layers.ConvBN(4, 8, 3, 1, dims=3, bn=True, use_bias=True), lambda m, x: m(x),

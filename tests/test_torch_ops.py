@@ -9,6 +9,9 @@ function and to its port, on the CPU:
     each op that carries a hand-written CUDA kernel in the port, to
     rtol = atol = 1e-4 (the shapes of tests/test_ops.py).
 
+``imwarp``'s two sampling paths (the integer-origin 2-tap one and the
+generic 4-tap one) must also give the same bits in the port.
+
 On the CPU the port's kernel wrappers take their plain PyTorch versions;
 the CUDA kernels are held against those on the card by chip_smoke.py.
 """
@@ -26,7 +29,9 @@ from dsmnet_tpu.ops import cost_volume as j_cost_volume
 from dsmnet_tpu.ops import fused_costvol as j_fused
 from dsmnet_tpu.ops import regression as j_regression
 from dsmnet_tpu.ops import resize as j_resize
+from dsmnet_tpu.ops import warp as j_warp
 from dsmnet_tpu_torch import ops as t_ops
+from dsmnet_tpu_torch.ops import warp as t_warp
 
 
 @pytest.fixture(autouse=True)
@@ -81,11 +86,30 @@ F64_CASES = {
         lambda x: j_resize.resize_bilinear(x, (9, 13)),
         lambda x: t_ops.resize_bilinear(x, (9, 13)),
         _rand(rng, 2, 5, 7, 3)),
+    "upsample2x": lambda rng: _run_f64(j_resize.upsample2x, t_ops.upsample2x,
+                                       _rand(rng, 2, 3, 5, 2)),
     "concat_cost_volume_reference": lambda rng: _run_f64(
         lambda a, b: j_cost_volume.concat_cost_volume_reference(a, b, 7, True),
         lambda a, b: t_ops.concat_cost_volume_reference(a, b, 7, True),
         _rand(rng, 1, 3, 5, 2), _rand(rng, 1, 3, 5, 2)),
 }
+# imwarp: (source shape, disparity shape, fliplr, left_top, scale); the
+# disparities span [-6, 12], so some samples leave the source on either side
+WARP_CASES = {
+    "h_path_scale2": ((2, 12, 30, 3), (2, 5, 12, 1), False, (2.0, 1.0), 2.0),
+    "h_path_fliplr": ((1, 6, 10, 2), (1, 6, 10, 1), True, (0.0, 0.0), 1.0),
+    # fractional origin and scale: the 4-tap path, bottom rows past the source
+    "generic": ((2, 9, 20, 3), (2, 6, 10, 1), False, (1.5, 0.25), 1.7),
+}
+for _name, (_src, _disp, _flip, _lt, _s) in WARP_CASES.items():
+    def _case(rng, src=_src, disp=_disp, flip=_flip, lt=_lt, s=_s):
+        return _run_f64(lambda a, d: j_warp.imwarp(a, d, flip, lt, s),
+                        lambda a, d: t_warp.imwarp(a, d, flip, lt, s),
+                        _rand(rng, *src), rng.uniform(-6, 12, disp))
+    F64_CASES[f"imwarp_{_name}"] = _case
+F64_CASES["warp_disparity"] = lambda rng: _run_f64(
+    j_warp.warp_disparity, t_warp.warp_disparity, rng.uniform(0, 8, (2, 5, 9, 1)),
+    rng.uniform(-3, 12, (2, 5, 9, 1)))
 for _ml in (True, False):
     for _target in ("cost_volume_conv3x3", "cost_volume_conv3x3_reference"):
         # (n, h, w, f, o, D): an interior case and one with D > W (zero slices)
@@ -188,3 +212,39 @@ def test_kernel_op_matches_pallas_interpret_f32(name, rng):
     out = op(torch.from_numpy(x), torch.from_numpy(k)).numpy()
     assert out.shape == ref.shape, (out.shape, ref.shape)
     np.testing.assert_allclose(out, ref, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32, torch.bfloat16],
+                         ids=["f64", "f32", "bf16"])
+def test_imwarp_horizontal_path_matches_generic_bits(dtype, rng):
+    """At an integer origin and scale imwarp takes its 2-tap path; the
+    generic 4-tap gather on the same sample grid gives the same bits."""
+    src = torch.from_numpy(_rand(rng, 2, 12, 30, 3)).to(dtype)
+    disp = torch.from_numpy(rng.uniform(-6, 12, (2, 5, 12, 1))).to(dtype)
+    out = t_warp.imwarp(src, disp, left_top=(2.0, 1.0), scale_factor=2.0)
+    px = 2.0 + torch.arange(12, dtype=torch.float32).view(1, 1, 12) * 2.0 - disp[..., 0]
+    py = (1.0 + torch.arange(5, dtype=torch.float32).view(1, 5, 1) * 2.0).expand_as(px)
+    generic = t_warp._bilinear_gather_zero_pad(src + torch.tensor(5.5e-5, dtype=dtype), px, py)
+    assert out.dtype == dtype
+    assert torch.equal(out, generic)
+
+
+# kernel J's plain version (the whole op on the CPU) against the Pallas
+# interior kernel with its XLA boundary patches: (n, h, w, f, o, D, mask_left)
+STEM_PALLAS_CASES = {
+    "masked": (2, 8, 12, 4, 8, 6, True),
+    "d_gt_w": (1, 4, 5, 4, 8, 9, True),
+    "d2_dense": (1, 4, 10, 4, 8, 2, False),
+}
+
+
+@pytest.mark.parametrize("name", sorted(STEM_PALLAS_CASES))
+def test_stem_matches_pallas_interpret_f32(name, rng):
+    n, h, w, f, o, D, ml = STEM_PALLAS_CASES[name]
+    fL, fR, k = (a.astype(np.float32) for a in _stem_inputs(rng, n, h, w, f, o))
+    ref = np.asarray(j_fused.cost_volume_conv3x3(
+        jnp.asarray(fL), jnp.asarray(fR), jnp.asarray(k), D, ml, use_pallas=True, interpret=True))
+    out = t_ops.cost_volume_conv3x3(torch.from_numpy(fL), torch.from_numpy(fR),
+                                    torch.from_numpy(k), D, ml)
+    assert out.dtype == torch.float32 and out.shape == ref.shape == (n, D, h, w, o)
+    np.testing.assert_allclose(out.numpy(), ref, rtol=1e-4, atol=1e-4)

@@ -37,6 +37,7 @@ from dsmnet_tpu_torch.models.layers import calibrate_batch_stats
 from dsmnet_tpu_torch.ops import conv2d, conv3d
 from dsmnet_tpu_torch.ops import corr as t_corr
 from dsmnet_tpu_torch.ops import cost_volume as t_cost_volume
+from dsmnet_tpu_torch.ops import fused_costvol as t_fused
 from dsmnet_tpu_torch.ops.softargmin import soft_argmin
 from dsmnet_tpu_torch.serve import Predictor
 
@@ -168,6 +169,7 @@ MODEL_CASES = {
     "gcnet": (24, 64, 96, torch.float64, 1e-5),
     "dispnet": (192, 64, 128, torch.float64, 1e-6),
     "dispnetcorr": (192, 64, 128, torch.float64, 1e-6),
+    "iresnet": (192, 64, 128, torch.float64, 1e-6),
     "psmnet_basic": (16, 256, 256, torch.float32, 1e-4),
 }
 
@@ -209,18 +211,23 @@ _WRAPPERS = [
     (conv3d, "deconv3d_k3s2_kernel", "deconv3d_k3s2"), (conv3d, "conv3d_dk_k3", "conv3d_dk_k3"),
     (conv3d, "conv3d_s2_dk_k3", "conv3d_dk_k3s2"),
     (t_cost_volume, "cost_volume_kernel", "cost_volume"), (t_corr, "corr1d_kernel", "corr1d"),
+    (t_fused, "cost_volume_conv3x3_kernel", "fused_costvol"),
 ]
 
 
 # name -> (maxdisparity, H, W, wrapper calls of one forward): the launches
 # per request that chip_smoke.py expects at 384x768, maxdisparity 192,
-# at a size where GCNet's volume stays even down to l30's input
+# at a size where GCNet's volume stays even down to l30's input (PSMNet's
+# at 256x256, its smallest input)
 ROUTES = {
+    "psmnet": (32, 256, 256, {"conv2d_k3": 8, "conv3d_k3": 12, "conv3d_k3s2": 6,
+                              "deconv3d_k3s2": 3, "fused_costvol": 1}),
     "gcnet": (32, 64, 128, {"conv2d_k3": 17, "conv3d_k3": 10, "conv3d_k3s2": 3,
                             "deconv3d_k3s2": 1, "cost_volume": 1}),
     "psmnet_basic": (16, 256, 256, {"conv2d_k3": 16, "conv3d_k3": 11, "cost_volume": 1}),
     "dispnetcorr": (192, 64, 128, {"corr1d": 1}),
     "dispnet": (192, 64, 128, {}),
+    "iresnet": (192, 64, 128, {"corr1d": 2}),
 }
 
 
@@ -246,7 +253,7 @@ def test_model_routes_ops_to_kernel_wrappers(name, monkeypatch):
     assert calls == expected
 
 
-@pytest.mark.parametrize("name", ["gcnet", "dispnetcorr"])
+@pytest.mark.parametrize("name", ["gcnet", "dispnetcorr", "iresnet"])
 def test_predictor_serves_model_on_cpu(name, rng):
     server = Predictor(net=name, maxdisparity=32, device="cpu", dtype=torch.bfloat16)
     disp = server.predict(rng.rand(64, 128, 3), rng.rand(64, 128, 3))
