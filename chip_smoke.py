@@ -342,7 +342,13 @@ def kernel_specs():
                     "train": [(vol32(B), k3(32, 64), 6), (vol64(B), k3(64, 64), 3)],
                     "serve_gcnet": [(gc(0, 64), k3(64, 64), 1), (gc(1, 64), k3(64, 64), 1),
                                     (gc(2, 64), k3(64, 64), 1)]},
-             edges=[((1, 6, 10, 40, 32), k3(32, 64)), ((1, 6, 10, 36, 64), k3(64, 64))]),
+             # C's bf16 walk: one output D-slice (D = 2), runs of 2 ending in a
+             # ragged one (D = 10, 18 at 132 SMs), H = 2, batch 2, W/2 not a
+             # multiple of the 32-column tile, C = 32 and 64
+             edges=[((1, 6, 10, 40, 32), k3(32, 64)), ((1, 6, 10, 36, 64), k3(64, 64)),
+                    ((1, 2, 10, 40, 32), k3(32, 64)), ((2, 10, 32, 72, 64), k3(64, 64)),
+                    ((2, 18, 10, 200, 32), k3(32, 64)), ((1, 4, 2, 40, 32), k3(32, 64)),
+                    ((2, 6, 10, 36, 64), k3(64, 64))]),
         dict(name="deconv3d_k3s2", kind="conv", route="cuda",
              source="dsmnet_tpu_torch/csrc/deconv3d_k3s2.cu",
              replaces="dsmnet_tpu/ops/conv3d_s2_pallas.py:570", primary="train",
@@ -384,8 +390,15 @@ def kernel_specs():
              flops=dk_flops(27),
              # conv1's dK and, roles swapped, the conv6 deconv's dW share a shape
              paths={"train": [(vol32(B), vol64(B), 6), (vol64(B), vol64s(B), 3)]},
+             # G's bf16 walk: D = 2, an odd D/2, H = 2, batch 2 with three
+             # ragged 48-position segments and chunks that start inside a row
+             # line (90 rows in 45 chunks at 132 SMs), C = 32 and 64
              edges=[((1, 6, 10, 40, 32), (1, 3, 5, 20, 64)),
-                    ((1, 6, 10, 36, 64), (1, 3, 5, 18, 64))]),
+                    ((1, 6, 10, 36, 64), (1, 3, 5, 18, 64)),
+                    ((1, 2, 10, 40, 32), (1, 1, 5, 20, 64)),
+                    ((1, 10, 6, 36, 64), (1, 5, 3, 18, 64)),
+                    ((1, 4, 2, 40, 32), (1, 2, 1, 20, 64)),
+                    ((2, 6, 10, 200, 32), (2, 3, 5, 100, 64))]),
         dict(name="cost_volume", kind="copy", route="cuda",
              source="dsmnet_tpu_torch/csrc/cost_volume.cu",
              replaces="dsmnet_tpu/ops/cost_volume.py:76", primary="serve_gcnet",
@@ -534,6 +547,47 @@ def check_edges(spec, dev, gen):
     emit({"kernel_edges": {"kernel": spec["name"], "cases": rows}})
 
 
+def staged_mb(name, a, sms):
+    """MB per launch that kernels C and G move from L2 into shared memory at
+    x shape ``a`` (input rows and columns with their halo, kernel columns,
+    cotangent rows; each copy counted once per block that makes it), in
+    bf16 for the s2_ring.cuh design and for the conv_k3.cuh / dk_k3.cuh
+    tiles (their f32 instantiations' design); None for the other kernels."""
+    from dsmnet_tpu_torch.ops import conv3d
+
+    cdiv = lambda p, q: -(-p // q)
+    if name not in ("conv3d_k3s2", "conv3d_dk_k3s2"):
+        return None
+    n, d, h, w, c = a
+    if name == "conv3d_k3s2":
+        do, ho, wo = d // 2, h // 2, w // 2
+        rh, tm, ncob = conv3d.S2_FWD_TILES[c]
+        runs = conv3d.s2_fwd_runs(do, conv3d.s2_fwd_run(n, do, ho, wo, c, sms))
+        cols = n * cdiv(ho, rh) * cdiv(wo, tm) * ncob
+        # every run stages its 2 r + 1 slices (both parity planes of
+        # tm + 1 pairs) and the block's 27 c x 64 / ncob kernel columns
+        new = cols * (sum(2 * (e - b) + 1 for b, e in runs) * (2 * rh + 1) * 2 * (tm + 1) * c
+                      + len(runs) * 27 * c * 64 // ncob) * 2
+        # conv_k3.cuh: blocks of rh x tm outputs of one (n, d), 3 kd x
+        # (2 rh + 1) rows of 2 tm + 1 columns and the whole kernel each
+        tm, rh = (32, 8) if c == 32 else (16, 4)
+        old = cdiv(wo, tm) * cdiv(ho, rh) * n * do * (
+            3 * (2 * rh + 1) * (2 * tm + 1) * c + 27 * c * 64) * 2
+        return new / 1e6, old / 1e6
+    dg, tw = d // 2, conv3d.S2_DK_SEGMENT
+    rows = conv3d.s2_dk_rows(n, d, h, w)
+    chunks = conv3d.s2_dk_chunks(rows, c, sms)
+    # 3 kd blocks per row: the g segment, two x rows of both parity planes
+    # of tw + 1 pairs (none for slice -1, kd = 0 at od = 0), and two halo
+    # rows per chunk
+    x_rows = 3 * rows - rows // dg
+    new = (3 * rows * tw * 64 + (x_rows + 3 * chunks) * 2 * 2 * (tw + 1) * c) * 2
+    # dk_k3.cuh: 9 tap groups per row segment, its g and one x row of
+    # 2 tw + 1 columns each
+    old = 9 * rows * (tw * 64 + (2 * tw + 1) * c) * 2
+    return new / 1e6, old / 1e6
+
+
 def check_kernel(spec, a_shape, b_shape, launches, path, dev, gen, *args):
     """Errors of the bf16 and f32 kernels against the plain f32 reference, and timings."""
     a, b = kernel_inputs(spec, a_shape, b_shape, dev, gen)
@@ -554,6 +608,10 @@ def check_kernel(spec, a_shape, b_shape, launches, path, dev, gen, *args):
         bound_ms=max(t_flops, t_bytes), bound_by="operations" if t_flops >= t_bytes else "bytes",
         gflop=flops / 1e9, mbytes=nbytes / 1e6,
     )
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    staged = staged_mb(spec["name"], a_shape, sms)
+    if staged is not None:
+        row["l2_to_shared_mb"], row["l2_to_shared_mb_k3_tiles"] = staged
     emit({"kernel_check": row})
     return row
 
@@ -786,7 +844,8 @@ def profile(tag: str, fn, top: int = 25) -> None:
     kernels.sort(key=lambda r: -r[1])
     device_ms = sum(ms for _, ms, _ in kernels)
     ported_ms = sum(ms for name, ms, _ in kernels if any(
-        s in name for s in ("conv_k3_kernel", "deconv_k3s2_kernel", "dk_k3_kernel", "dk_reduce",
+        s in name for s in ("conv_k3_kernel", "s2_fwd_kernel", "deconv_k3s2_kernel",
+                            "dk_k3_kernel", "s2_dk_kernel", "dk_reduce",
                             "cost_volume_kernel", "corr1d_kernel", "fused_costvol_kernel")))
     emit({tag: {"wall_ms": wall_ms, "device_ms": device_ms,
                 "device_busy_share": device_ms / wall_ms, "ported_kernels_ms": ported_ms,

@@ -20,6 +20,7 @@ the ops reach the wrappers only inside their ``torch.autograd.Function``.
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
 import shutil
@@ -35,7 +36,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-Xptxas=-v")
 
 # kernel name -> (C entry point, device pointers, int arguments).  Forward
-# conv kernels take (x, w, y, dtype, N, [D,] H, W, C, Co); the
+# conv kernels take (x, w, y, dtype, N, [D,] H, W, C, Co), kernel C also
+# the output D-slices per block of its bf16 walk; the
 # weight-gradient kernels take (x, g, dk, workspace, dtype, N, D, H, W, C,
 # Co, chunks); the cost volume takes (fL, fR, out, dtype, N, H, W, F, D,
 # mask_left), the correlation (fL, fR, out, dtype, N, H, W, C, D, stride),
@@ -43,7 +45,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 ENTRY_POINTS = {
     "conv2d_k3": ("dsm_conv2d_k3", 3, 6),
     "conv3d_k3": ("dsm_conv3d_k3", 3, 7),
-    "conv3d_k3s2": ("dsm_conv3d_k3s2", 3, 7),
+    "conv3d_k3s2": ("dsm_conv3d_k3s2", 3, 8),
     "deconv3d_k3s2": ("dsm_deconv3d_k3s2", 3, 7),
     "conv2d_dk_k3": ("dsm_conv2d_dk_k3", 4, 8),
     "conv3d_dk_k3": ("dsm_conv3d_dk_k3", 4, 8),
@@ -54,8 +56,9 @@ ENTRY_POINTS = {
 }
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 # A weight-gradient kernel splits the positions into at most DK_CHUNKS
-# chunks, each summed into its own float32 partial dK; a second pass adds
-# the partials in a fixed order, so dK is the same bits on every run.
+# chunks (kernel G: as many as its wrapper plans), each summed into its own
+# float32 partial dK; a second pass adds the partials in a fixed order, so
+# dK is the same bits on every run.
 DK_CHUNKS = 128
 
 LAUNCHES: dict[str, int] = {name: 0 for name in ENTRY_POINTS}
@@ -174,18 +177,27 @@ def require_cuda(name: str, *tensors: torch.Tensor) -> None:
 
 
 def launch_dk(name: str, x: torch.Tensor, g: torch.Tensor, taps: int,
-              dims: tuple[int, int, int, int, int, int], rows: int) -> torch.Tensor:
+              dims: tuple[int, int, int, int, int, int], rows: int,
+              chunks: int | None = None) -> torch.Tensor:
     """Launch weight-gradient kernel ``name`` on x and the cotangent g:
     ``dims`` = (N, D, H, W, C, Co) of x (D = 1 for 2-D) and g's channels,
-    ``rows`` the number of cotangent rows (one W line each).  Returns dK
-    flat, ``taps * C * Co`` float32."""
-    chunks = max(1, min(DK_CHUNKS, rows))
+    ``rows`` the number of cotangent rows (one W line each); ``chunks``
+    partials (default: one per row, at most DK_CHUNKS).  Returns dK flat,
+    ``taps * C * Co`` float32."""
+    if chunks is None:
+        chunks = max(1, min(DK_CHUNKS, rows))
     c, co = dims[4], dims[5]
     ws = torch.empty((chunks, taps * c * co), dtype=torch.float32, device=x.device)
     dk = torch.empty((taps * c * co,), dtype=torch.float32, device=x.device)
     launch(name, x.device, x.data_ptr(), g.data_ptr(), dk.data_ptr(), ws.data_ptr(),
            DTYPE_CODES[x.dtype], *dims, chunks)
     return dk
+
+
+@functools.cache
+def sm_count(index: int) -> int:
+    """Streaming multiprocessors of CUDA device ``index``: what a launch plan fills."""
+    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 def launch(name: str, device: torch.device, *args) -> None:

@@ -15,10 +15,13 @@ PyTorch version with plain autograd for the rest:
     Pallas (``folded.py:170-206``).
   * ``conv3d_s2`` — 3x3x3 stride 2 pad 1, even D/H/W, C in {32, 64},
     Co = 64 (``_Conv3dK3S2``, JAX ``_s2f_bwd`` ``folded.py:245-280``):
-    forward on kernel C (``csrc/conv3d_k3s2.cu``); dx, the k3s2 transposed
+    forward on kernel C (``csrc/conv3d_k3s2.cu``; bf16 on the D-walking
+    ring of ``csrc/s2_ring.cuh``, its runs planned by :func:`s2_fwd_run`);
+    dx, the k3s2 transposed
     conv of the cotangent with the forward kernel, on kernel D for C = 32
     and plain for C = 64 (JAX's gate ``s2_dx_pallas_ok``); dK on kernel G
-    (``csrc/conv3d_dk_k3s2.cu``).
+    (``csrc/conv3d_dk_k3s2.cu``; bf16 on the row ring of
+    ``csrc/s2_ring.cuh``, its partials planned by :func:`s2_dk_chunks`).
   * ``deconv3d_k3s2`` — ConvTranspose3d k3 s2 p1 op1 on the flax
     (3,3,3,Cout,Cin) kernel, Cin 64 -> Cout 32 (``_Deconv3dK3S2``, JAX
     ``_fdc_bwd`` ``folded.py:347-361``): forward on kernel D
@@ -105,6 +108,51 @@ def conv3d_s2_dk_plain(x: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
     return _dk_taps(F.pad(x.to(acc), (0, 0, 1, 1, 1, 1, 1, 1)), g.to(acc), 2)
 
 
+# ------------------------------------------------------------ launch plans
+
+# Kernel C's bf16 tiles (csrc/conv3d_k3s2.cu): input channels -> (output
+# rows, output columns, blocks over the 64 output channels)
+S2_FWD_TILES = {32: (4, 32, 1), 64: (4, 32, 2)}
+# Kernel G's bf16 row segment (positions) and blocks resident per SM
+S2_DK_SEGMENT = 48
+S2_DK_BLOCKS_PER_SM = {32: 2, 64: 1}
+
+
+def _cdiv(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+def s2_fwd_run(n: int, do: int, ho: int, wo: int, c: int, sms: int) -> int:
+    """Output D-slices per block of kernel C's bf16 walk.  One block fits an
+    SM (227 KB of shared memory); a block of run r stages 2 r + 1 input
+    slices and its resident kernel (2.8 slices' bytes at C = 32, 1.4 at
+    C = 64), so a launch takes about ceil(blocks / sms) x (2 r + 1 +
+    kernel) slice times: the run with the least, the longest on ties."""
+    rh, tm, ncob = S2_FWD_TILES[c]
+    cols = n * _cdiv(ho, rh) * _cdiv(wo, tm) * ncob
+    kernel = 27 * c * 64 / ncob / ((2 * rh + 1) * 2 * (tm + 1) * c)
+    cost = lambda r: (_cdiv(cols * _cdiv(do, r), sms) * (2 * r + 1 + kernel), -r)
+    return min(range(1, do + 1), key=cost)
+
+
+def s2_fwd_runs(do: int, run: int) -> list[tuple[int, int]]:
+    """The output D-slices [d0, d1) of each run, as kernel C's blocks take them."""
+    return [(d0, min(do, d0 + run)) for d0 in range(0, do, run)]
+
+
+def s2_dk_rows(n: int, d: int, h: int, w: int) -> int:
+    """Cotangent rows (n, od, w-segment, oh) that kernel G's bf16 walk sums
+    for x (n, d, h, w, C)."""
+    return n * (d // 2) * _cdiv(w // 2, S2_DK_SEGMENT) * (h // 2)
+
+
+def s2_dk_chunks(rows: int, c: int, sms: int) -> int:
+    """Partials of kernel G: one per block that runs at once, 3 kd blocks
+    each, as many as fill ``sms`` SMs, with no empty chunk."""
+    per = _cdiv(rows, max(1, sms * S2_DK_BLOCKS_PER_SM[c] // 3))
+    return _cdiv(rows, per)
+
+
 # ---------------------------------------------------------- kernel wrappers
 
 def conv3d_k3_ok(x, k) -> bool:
@@ -154,8 +202,9 @@ def conv3d_k3s2(x: torch.Tensor, k: torch.Tensor) -> torch.Tensor:
                          f"x {tuple(x.shape)}, k {tuple(k.shape)}")
     n, d, h, w, c = x.shape
     y = torch.empty((n, d // 2, h // 2, w // 2, 64), dtype=x.dtype, device=x.device)
+    run = s2_fwd_run(n, d // 2, h // 2, w // 2, c, _build.sm_count(x.device.index))
     _build.launch("conv3d_k3s2", x.device, x.data_ptr(), k.data_ptr(), y.data_ptr(),
-                  _build.DTYPE_CODES[x.dtype], n, d, h, w, c, 64)
+                  _build.DTYPE_CODES[x.dtype], n, d, h, w, c, 64, run)
     return y
 
 
@@ -210,8 +259,10 @@ def conv3d_s2_dk_k3(x: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
                          f"{{32, 64}}, and g (N,D/2,H/2,W/2,64); got {tuple(x.shape)}, "
                          f"{tuple(g.shape)}")
     n, d, h, w, c = x.shape
-    return _build.launch_dk("conv3d_dk_k3s2", x, g, 27, (n, d, h, w, c, 64),
-                            n * (d // 2) * (h // 2)).reshape(3, 3, 3, c, 64)
+    rows = s2_dk_rows(n, d, h, w)
+    chunks = s2_dk_chunks(rows, c, _build.sm_count(x.device.index))
+    return _build.launch_dk("conv3d_dk_k3s2", x, g, 27, (n, d, h, w, c, 64), rows,
+                            chunks).reshape(3, 3, 3, c, 64)
 
 
 # ------------------------------------------------------ autograd Functions
