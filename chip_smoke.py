@@ -10,8 +10,9 @@
    supervised train step (384x768 crop, batch 4) for A-D in their
    forward and backward roles and the weight-gradient kernels E-G, and
    the serving of GCNet (A-D, the cost volume H), PSMNet-basic (A, B, H),
-   DispNetC and iResNet (the correlation I) at the same size, and the
-   fused stem's assembly J on PSMNet's serving and train-step tap maps.
+   DispNetC and iResNet (the correlation I) at the same size, the fused
+   stem's assembly J on PSMNet's serving and train-step tap maps, and F at
+   128 -> 128 on GCNet's train step (l31/l32, "train_gcnet").
    Each shape's bf16 kernel and its f32 instantiation are held against
    the plain PyTorch version computed in float32 from the same bf16 inputs
    with TF32 off (J: from the same float32 tap maps, written in bf16 and
@@ -34,8 +35,11 @@
    float64 plain model next to the float32 plain path's own error.
 5. Training: ``create_train_state`` + ``make_supervised_train_step``, bf16,
    batch 4, on one fixed batch for TRAIN_STEPS steps: every step's launch
-   counts equal the table below, the loss falls, and the median step
+   counts equal TRAIN_LAUNCHES, the loss falls, and the median step
    time, frames/s and peak memory are printed; then one profiled step.
+   The same for GCNet at batch 1 (``train_gcnet_bf16``, F's 128 -> 128
+   launches counted apart), then GCNet's gradient check as in 4 at the
+   size of 6 (``grad_gcnet_f32``).
 6. GCNet in float32 through the kernels against the plain path, both
    against float64, at 192x384 with maxdisparity 96 (``model_gcnet_f32``);
    iResNet likewise at 384x768, maxdisparity 192 (``model_iresnet_f32``).
@@ -43,7 +47,9 @@
    ``Predictor`` at 384x768, maxdisparity 192, answers N_REQUESTS
    requests, each with the launch counts of SERVE_LAUNCHES; then one
    profiled request each.
-8. The script's command time, one ``{"kernels": [...]}`` line (launches
+8. Training PSMNet-basic, DispNet, DispNetC and iResNet as in 5 at batch 4
+   for 4 steps each (``train_*_bf16``), unprofiled.
+9. The script's command time, one ``{"kernels": [...]}`` line (launches
    and times on each kernel's first path, "primary": the train step for
    A-G and J, GCNet's request for H, DispNetC's for I; and per path), the card's
    name and power limit, and last the ``{"ok": true, ...}`` line.
@@ -125,15 +131,44 @@ SERVE_LAUNCHES = {
 }
 SERVE_PATHS = {"gcnet": "serve_gcnet", "psmnet_basic": "serve_psmnet_basic",
                "dispnetcorr": "serve_dispnetc", "iresnet": "serve_iresnet"}
-# model_gcnet_f32: a size whose float64 pass stays short (~2 TFLOP per pair
-# at 384x768) and whose volume stays even down to l30's input
+# model_gcnet_f32 and grad_gcnet_f32: a size whose float64 pass stays short
+# (~2 TFLOP per pair at 384x768), whose volume stays even down to l30's
+# input and whose l31/l32 (1, 3, 6, 12, 128) still reach F at 128 -> 128
 GCNET_F32_H, GCNET_F32_W, GCNET_F32_MAXDISP = 192, 384, 96
-# A-D forward plus their backward roles (dx of A and B, the deconv's
-# d(input) on C, the stride-2 conv's dx on D), the weight gradients and the
-# stem's forward assembly (its backward is plain)
-STEP_LAUNCHES = {"conv2d_k3": 16, "conv3d_k3": 24, "conv3d_k3s2": 9, "deconv3d_k3s2": 6,
-                 "conv2d_dk_k3": 8, "conv3d_dk_k3": 12, "conv3d_dk_k3s2": 9,
-                 "fused_costvol": 1}
+# launches per supervised train step, at 384x768, maxdisparity 192:
+# PSMNet: A-D forward plus their backward roles (dx of A and B, the
+# deconv's d(input) on C, the stride-2 conv's dx on D), the weight
+# gradients and the stem's forward assembly (its backward is plain);
+# GCNet: the tower's 17 A convs forward and dx and their dK (E), its ten B
+# convs (l31/l32 at 128 -> 128) forward and dx and their dK (F), l21/l24/l27
+# on C and l36's d(input) on C, their dK and l36's dW on G, l36 on D (the
+# stride-2 convs' dx at C = 64 is plain, as in JAX), the volume (H);
+# PSMNet-basic: the tower once per view (8 A convs each) forward and dx and
+# their dK, its eleven B convs forward and dx and their dK, the volume;
+# DispNet: no kernel (JAX runs no Pallas kernel in it); DispNetC and
+# iResNet: the correlations' forward (their backward is plain, as JAX's)
+TRAIN_LAUNCHES = {
+    "psmnet": {"conv2d_k3": 16, "conv3d_k3": 24, "conv3d_k3s2": 9, "deconv3d_k3s2": 6,
+               "conv2d_dk_k3": 8, "conv3d_dk_k3": 12, "conv3d_dk_k3s2": 9, "fused_costvol": 1},
+    "gcnet": {"conv2d_k3": 34, "conv2d_dk_k3": 17, "conv3d_k3": 20, "conv3d_dk_k3": 10,
+              "conv3d_k3s2": 4, "conv3d_dk_k3s2": 4, "deconv3d_k3s2": 1, "cost_volume": 1},
+    "psmnet_basic": {"conv2d_k3": 32, "conv2d_dk_k3": 16, "conv3d_k3": 22, "conv3d_dk_k3": 11,
+                     "cost_volume": 1},
+    "dispnet": {},
+    "dispnetcorr": {"corr1d": 1},
+    "iresnet": {"corr1d": 2},
+}
+# of F's launches per step, those at 128 -> 128 (GCNet's l31 and l32)
+TRAIN_F128_LAUNCHES = {"gcnet": 2}
+# name -> (path, batch, steps, lr): PSMNet at the JAX bench's batch 4 and lr;
+# GCNet at its published batch 1, lr 1e-3; the others at batch 4 for fewer
+# steps, at the JAX CLI's default lr (dsmnet_tpu/cli.py:45)
+TRAIN_RUNS = {"psmnet": ("train", TRAIN_BATCH, TRAIN_STEPS, TRAIN_LR),
+              "gcnet": ("train_gcnet", 1, 8, 1e-3),
+              "psmnet_basic": ("train_psmnet_basic", 4, 4, 1e-4),
+              "dispnet": ("train_dispnet", 4, 4, 1e-4),
+              "dispnetcorr": ("train_dispnetc", 4, 4, 1e-4),
+              "iresnet": ("train_iresnet", 4, 4, 1e-4)}
 
 
 T_START = time.perf_counter()
@@ -377,11 +412,20 @@ def kernel_specs():
              library=lib_wgrad(1, 3), out=lambda x, g, *a: (3, 3, 3, x[-1], g[-1]),
              flops=dk_flops(27),
              paths={"train": [(vol32(B), vol32(B), 6), (vol64(B), vol64(B), 3),
-                              (vol64s(B), vol64s(B), 3)]},
+                              (vol64s(B), vol64s(B), 3)],
+                    # GCNet's l31/l32 (128 -> 128) at batch 1; its other
+                    # eight F launches per step are counted in train_gcnet_bf16
+                    "train_gcnet": [(gc(4, 128), gc(4, 128), 2)]},
              edges=[((1, 5, 10, 40, 32), (1, 5, 10, 40, 32)),
                     ((1, 5, 10, 40, 32), (1, 5, 10, 40, 64)),
                     ((1, 5, 9, 20, 64), (1, 5, 9, 20, 32)),
-                    ((1, 5, 9, 20, 64), (1, 5, 9, 20, 64))]),
+                    ((1, 5, 9, 20, 64), (1, 5, 9, 20, 64)),
+                    # 128 -> 128: W = 8 (one segment, 24 zero-filled
+                    # columns), D = 2, W = 24 with odd H, batch 2 with a
+                    # ragged second segment (W = 40)
+                    ((1, 2, 3, 8, 128), (1, 2, 3, 8, 128)),
+                    ((1, 2, 5, 24, 128), (1, 2, 5, 24, 128)),
+                    ((2, 3, 4, 40, 128), (2, 3, 4, 40, 128))]),
         dict(name="conv3d_dk_k3s2", kind="dk", route="cuda",
              source="dsmnet_tpu_torch/csrc/conv3d_dk_k3s2.cu",
              replaces="dsmnet_tpu/ops/conv3d_s2_pallas.py:346", primary="train",
@@ -852,28 +896,56 @@ def profile(tag: str, fn, top: int = 25) -> None:
                 "top_kernels_ms_count": kernels[:top]}})
 
 
-def train_batch(n: int, dev) -> torch.Tensor:
+def train_batch(n: int, dev, h: int = H, w: int = W) -> torch.Tensor:
     """A fixed random 7-channel batch as bench.py:84-86 builds it."""
     rng = np.random.RandomState(0)
-    b = rng.rand(n, H, W, 7).astype(np.float32)
+    b = rng.rand(n, h, w, 7).astype(np.float32)
     b[..., 6] = b[..., 6] * 100 + 1
     return torch.from_numpy(b).to(dev)
 
 
-def check_gradients(dev) -> None:
-    """Every parameter's float32 gradient through the kernels against the
-    float64 plain model, next to the float32 plain path's own error."""
+def loss_weights(model) -> np.ndarray:
+    """The curriculum's weights once its sweep is over (1 at full
+    resolution, 0.01 at the other scales): one 1 for a one-level model."""
+    from dsmnet_tpu_torch.losses import parse_loss_name
+
+    return parse_loss_name("supervised", model.count_levels).weights(1)
+
+
+def zero_gradient_params(model) -> set[str]:
+    """Parameters whose gradient is 0 in exact arithmetic: the bias of a
+    conv or deconv that feeds a BN, and GCNet's l37 bias (the soft-argmin is
+    shift-invariant).  Their float32 and float64 gradients are rounding
+    noise, so their error is measured against the norm of the float64
+    gradient of the same layer's kernel."""
+    from dsmnet_tpu_torch.models.layers import ConvBN, DeconvBN
+
+    names = {f"{m}.{k}.bias" for m, mod in model.named_modules()
+             if isinstance(mod, (ConvBN, DeconvBN)) and mod.BatchNorm_0 is not None
+             for k in ("Conv_0", "ConvTranspose_0")
+             if getattr(mod, k, None) is not None and getattr(mod, k).bias is not None}
+    if type(model).__name__ == "GCNet":
+        names.add("layer3d.l37.ConvTranspose_0.bias")
+    return names
+
+
+def check_gradients(dev, name: str = "psmnet", h: int = H, w: int = W,
+                    maxdisp: int = MAXDISP, tag: str = "grad_f32") -> None:
+    """Every parameter's float32 gradient of ``name`` through the kernels
+    against the float64 plain model, next to the float32 plain path's own
+    error, on one h x w pair."""
     from dsmnet_tpu_torch import config
     from dsmnet_tpu_torch.losses import supervised_pyramid_loss
     from dsmnet_tpu_torch.ops import _build
 
-    model = seeded_model(dev).train()
-    batch = train_batch(1, dev)
+    model = seeded_model(dev, name, maxdisp).train()
+    batch = train_batch(1, dev, h, w)
+    weights = loss_weights(model)
 
     def grads(m, b):
         m.zero_grad(set_to_none=True)
         scales, disps = m(b[..., :3], b[..., 3:6])
-        loss = supervised_pyramid_loss(b[..., 6:7], disps, scales, np.ones(1))
+        loss = supervised_pyramid_loss(b[..., 6:7], disps, scales, weights)
         loss.backward()
         return loss.item(), {n: p.grad.double() for n, p in m.named_parameters()}
 
@@ -886,8 +958,13 @@ def check_gradients(dev) -> None:
         model64 = copy.deepcopy(model).double()
         loss_64, g_64 = grads(model64, batch.double())
         del model64
-    rel = lambda a, b: ((a - b).norm() / b.norm().clamp(min=1e-300)).item()
-    rows = {n: (rel(g_k[n], g_64[n]), rel(g_p[n], g_64[n])) for n in g_64}
+    zero = zero_gradient_params(model)
+    # the norm each error is measured against: the gradient's own, or for a
+    # gradient that is 0 in exact arithmetic, its layer's kernel gradient's
+    scale = {n: (g_64[n.replace(".bias", ".kernel")] if n in zero else g_64[n]).norm()
+             for n in g_64}
+    rel = lambda a, b, n: ((a - b).norm() / scale[n].clamp(min=1e-300)).item()
+    rows = {n: (rel(g_k[n], g_64[n], n), rel(g_p[n], g_64[n], n)) for n in g_64}
     floor = GRAD_F32_FLOOR_SHARE * statistics.median(r[1] for r in rows.values())
     limit = lambda r: GRAD_F32_FACTOR * r[1] + floor
     bad = {n: r for n, r in rows.items() if not r[0] <= limit(r)}
@@ -895,59 +972,100 @@ def check_gradients(dev) -> None:
     # the parameters nearest their limit: (kernels, plain, kernels / limit)
     tightest = [(n, (*r, r[0] / limit(r))) for n, r in
                 sorted(rows.items(), key=lambda kv: -kv[1][0] / limit(kv[1]))[:5]]
-    emit({"grad_f32": {
-        "pair": [H, W], "batch": 1, "params": len(rows),
+    expected = TRAIN_LAUNCHES[name]
+    emit({tag: {
+        "net": name, "pair": [h, w], "maxdisparity": maxdisp, "batch": 1, "params": len(rows),
+        "zero_in_exact_arithmetic": len(zero),
         "loss": {"kernels": loss_k, "plain_f32": loss_p, "f64": loss_64},
         "max_rel_err_kernels": max(r[0] for r in rows.values()),
         "max_rel_err_plain": max(r[1] for r in rows.values()),
         "median_rel_err_kernels": statistics.median(r[0] for r in rows.values()),
         "median_rel_err_plain": statistics.median(r[1] for r in rows.values()),
         "worst_kernels": worst, "tightest": tightest, "outside_tol": bad,
-        "tolerance": f"per parameter |g - g64| / |g64|: kernels <= {GRAD_F32_FACTOR} * plain"
+        "tolerance": f"per parameter |g - g64| / |g64| (a gradient 0 in exact arithmetic: "
+                     f"/ |g64 of its layer's kernel|): kernels <= {GRAD_F32_FACTOR} * plain"
                      f" + {GRAD_F32_FLOOR_SHARE} * median(plain) = {floor:.3g}",
-        "launches": launches}})
-    if launches != STEP_LAUNCHES:
-        raise RuntimeError(f"f32 gradient launches {launches}, expected {STEP_LAUNCHES}")
+        "launches": launches, "expected_launches": expected}})
+    if launches != expected:
+        raise RuntimeError(f"{name} f32 gradient launches {launches}, expected {expected}")
     if bad:
-        raise RuntimeError(f"{len(bad)} parameter gradients outside tolerance: {bad}")
+        raise RuntimeError(f"{name}: {len(bad)} parameter gradients outside tolerance: {bad}")
 
 
-def run_training(dev):
-    """The supervised train step, bf16, batch TRAIN_BATCH, on one fixed batch."""
+def count_f128_launches(counter: list):
+    """Wrap kernel F's wrapper, which ``_Conv3dK3.backward`` looks up in its
+    module at each call, so that its 128 -> 128 launches are also counted
+    apart (``counter[0]``); returns a function that removes the wrap."""
+    from dsmnet_tpu_torch.ops import conv3d
+
+    orig = conv3d.conv3d_dk_k3
+
+    def counted(x, g):
+        dk = orig(x, g)  # launches F (a CUDA tensor launches or raises)
+        if x.shape[-1] == 128:
+            counter[0] += 1
+        return dk
+
+    conv3d.conv3d_dk_k3 = counted
+    return lambda: setattr(conv3d, "conv3d_dk_k3", orig)
+
+
+def run_training(dev, name: str = "psmnet") -> dict:
+    """The supervised train step of ``name`` (TRAIN_RUNS: path, batch,
+    steps, Adam's lr), bf16, at H x W and maxdisparity MAXDISP, on one
+    fixed batch: every step's launches must equal
+    TRAIN_LAUNCHES[name] and the loss must fall.  PSMNet and GCNet are also
+    profiled for one step.  Returns the launches per step that the path's
+    kernel_specs rows count (GCNet: F's 128 -> 128 launches alone)."""
     from dsmnet_tpu_torch.models.layers import compute_dtype
     from dsmnet_tpu_torch.ops import _build
     from dsmnet_tpu_torch.train import create_train_state, make_supervised_train_step
 
-    state, opt = create_train_state(seeded_model(dev), device=dev)
+    path, batch_n, steps, lr = TRAIN_RUNS[name]
+    state, opt = create_train_state(seeded_model(dev, name), device=dev)
     step = make_supervised_train_step(state.model, opt)
-    batch = train_batch(TRAIN_BATCH, dev)
-    weights = np.ones(1, np.float32)
+    batch = train_batch(batch_n, dev)
+    weights = loss_weights(state.model)
+    expected = TRAIN_LAUNCHES[name]
+    f128 = [0]
+    unwrap = count_f128_launches(f128)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    losses, step_ms, counts = [], [], []
-    with compute_dtype(torch.bfloat16):
-        for _ in range(TRAIN_STEPS):
-            _build.reset_launches()
-            t0 = time.perf_counter()
-            m = step(state, batch, TRAIN_LR, weights)
-            loss = m["loss"].item()  # synchronises: the step has completed
-            step_ms.append((time.perf_counter() - t0) * 1e3)
-            counts.append({k: v for k, v in _build.LAUNCHES.items() if v})
-            losses.append(loss)
-        metrics = {k: v.item() for k, v in m.items()}
-        peak = torch.cuda.max_memory_allocated() / 1e9
-        profile("train_profile", lambda: step(state, batch, TRAIN_LR, weights))
+    losses, step_ms, counts, f128_counts = [], [], [], []
+    try:
+        with compute_dtype(torch.bfloat16):
+            for _ in range(steps):
+                _build.reset_launches()
+                f128[0] = 0
+                t0 = time.perf_counter()
+                m = step(state, batch, lr, weights)
+                loss = m["loss"].item()  # synchronises: the step has completed
+                step_ms.append((time.perf_counter() - t0) * 1e3)
+                counts.append({k: v for k, v in _build.LAUNCHES.items() if v})
+                f128_counts.append(f128[0])
+                losses.append(loss)
+            metrics = {k: v.item() for k, v in m.items()}
+            peak = torch.cuda.max_memory_allocated() / 1e9
+            if name in ("psmnet", "gcnet"):
+                profile(f"{path}_profile", lambda: step(state, batch, lr, weights))
+    finally:
+        unwrap()
     med = statistics.median(step_ms[1:])  # the first step also warms the allocator
-    emit({"train_bf16": {
-        "batch": TRAIN_BATCH, "crop": [H, W], "maxdisparity": MAXDISP, "steps": TRAIN_STEPS,
-        "lr": TRAIN_LR, "loss": losses, "last_metrics": metrics, "step_ms": step_ms,
-        "median_step_ms": med, "frames_per_s": TRAIN_BATCH * 1e3 / med, "peak_mem_gb": peak,
-        "launches_per_step": counts[-1], "expected_launches_per_step": STEP_LAUNCHES}})
-    if any(c != STEP_LAUNCHES for c in counts):
-        raise RuntimeError(f"train-step launches {counts}, expected {STEP_LAUNCHES} per step")
+    emit({f"{path}_bf16": {
+        "net": name, "batch": batch_n, "crop": [H, W], "maxdisparity": MAXDISP, "steps": steps,
+        "lr": lr, "loss": losses, "last_metrics": metrics, "step_ms": step_ms,
+        "median_step_ms": med, "frames_per_s": batch_n * 1e3 / med, "peak_mem_gb": peak,
+        "launches_per_step": counts[-1], "expected_launches_per_step": expected,
+        "f128_dk_launches_per_step": f128_counts[-1]}})
+    if any(c != expected for c in counts):
+        raise RuntimeError(f"{name} train-step launches {counts}, expected {expected} per step")
+    want_f128 = TRAIN_F128_LAUNCHES.get(name, 0)
+    if any(c != want_f128 for c in f128_counts):
+        raise RuntimeError(f"{name}: F's 128 -> 128 launches per step {f128_counts}, "
+                           f"expected {want_f128}")
     if not all(math.isfinite(v) for v in losses) or not losses[-1] < losses[0]:
-        raise RuntimeError(f"the loss did not fall over {TRAIN_STEPS} steps: {losses}")
-    return counts[-1]
+        raise RuntimeError(f"{name}: the loss did not fall over {steps} steps: {losses}")
+    return {"conv3d_dk_k3": f128_counts[-1]} if name == "gcnet" else counts[-1]
 
 
 def main() -> int:
@@ -986,10 +1104,14 @@ def main() -> int:
     launches = {"serve": run_model(dev, N_REQUESTS)}
     check_gradients(dev)
     launches["train"] = run_training(dev)
+    launches["train_gcnet"] = run_training(dev, "gcnet")
+    check_gradients(dev, "gcnet", GCNET_F32_H, GCNET_F32_W, GCNET_F32_MAXDISP, "grad_gcnet_f32")
     check_model_f32(dev, "gcnet", GCNET_F32_H, GCNET_F32_W, GCNET_F32_MAXDISP)
     check_model_f32(dev, "iresnet", H, W, MAXDISP)
     for name, path in SERVE_PATHS.items():
         launches[path] = serve_model(name, dev, N_REQUESTS)
+    for name in ("psmnet_basic", "dispnet", "dispnetcorr", "iresnet"):
+        run_training(dev, name)
     # the shapes' launches in kernel_specs must add up to what each path launched
     for s in specs:
         for path in launches:

@@ -1,12 +1,14 @@
 // Kernel F: weight gradient of the 3x3x3 stride-1 SAME 3-D convolution,
-// C, Co in {32, 64}: dK (3, 3, 3, C, Co) float32 from x (N, D, H, W, C)
-// and the cotangent g (N, D, H, W, Co).
+// C, Co in {32, 64} and 128 -> 128: dK (3, 3, 3, C, Co) float32 from
+// x (N, D, H, W, C) and the cotangent g (N, D, H, W, Co).
 //
 // Replaces the TPU kernel conv3d_dk_pallas_folded
 // (dsmnet_tpu/ops/conv3d_pallas.py:341).  On PSMNet's train step it runs
 // the dK of dres0_1, dres1_0/1, the classifier c0 convs (32 -> 32 at
 // (4, 48, 96, 192)) and the hourglass conv2/conv4 (64 -> 64 at
-// (4, 24, 48, 96) and (4, 12, 24, 48)) at batch 4.
+// (4, 24, 48, 96) and (4, 12, 24, 48)) at batch 4; on GCNet's the dK of
+// l19/l20, l22/l23, l25/l26, l28/l29 and, at 128 -> 128, of l31/l32
+// ((1, 6, 12, 24, 128) at 384x768).
 //
 // What bounds it on the H100: 2 * 27 * C * Co FLOP per position against
 // (C + Co) bf16 read is ~860 FLOP/byte at 32 -> 32, above the ~295
@@ -17,6 +19,15 @@
 // not overlap the MMAs inside a block (no cp.async ring, TMA or wgmma):
 // resident blocks hide each other's loads, and that is the gap to the
 // bound.
+//
+// At 128 -> 128 a block of all 128 output channels would hold 3 * 128 *
+// 128 accumulators (384 a thread), so each tap group splits Co into four
+// tiles of 32 (96 a thread), and the x rows are read 36 times, from L2.
+// GCNet's l31/l32 are small (1.53 GFLOP, 0.44 MB of x, 0.44 MB of g, 1.77
+// MB of dK at batch 1): launch and the partials' pass bound them, not the
+// tensor cores.  Their W = 24 is one 32-column segment whose last 8
+// cotangent columns are zero-filled.  The wrapper plans the chunks
+// (ops/conv3d.py dk_k3_128_chunks): two blocks per SM.
 #include "dk_k3.cuh"
 
 using dsm::bf16;
@@ -35,6 +46,10 @@ static cudaError_t conv3d_dk(const void* x, const void* g, void* dk, void* ws, i
   DSM_CASE(64, 32, 48)
   DSM_CASE(64, 64, 48)
 #undef DSM_CASE
+  // 128 -> 128: 32-column segments, 4 per stage, Co tiles of 32
+  if (C == 128 && Co == 128)
+    return dsm::launch_dk_k3<T, 3, 1, 128, 128, 32, 4, 32>(x, g, dk, ws, N, D, H, W, D, H, W,
+                                                           chunks, st);
   return cudaErrorInvalidValue;
 }
 

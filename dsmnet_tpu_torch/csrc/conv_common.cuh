@@ -88,8 +88,9 @@ __device__ inline void cp_async_wait_all() { asm volatile("cp.async.wait_all;\n"
 // (S == 1) or, for a stride-2 conv, to slot (e & 1) * PLANE + (e >> 1):
 // even and odd columns in two planes, so that every stride-2 tap reads
 // consecutive slots.  Columns outside [0, W), and every column of a row
-// that is not valid, are zeros.
-template <typename T, int C, int S, int PLANE>
+// that is not valid, are zeros.  Columns lie LD elements apart in `row`
+// (LD > C: the C channels from `row` on of each LD-channel column).
+template <typename T, int C, int S, int PLANE, int LD = C>
 __device__ inline void stage_row(T* dst, const T* row, bool valid, int w_lo, int len, int W) {
   constexpr int V = C / vec<T>();
   constexpr int P = pitch<T>(C);
@@ -99,8 +100,8 @@ __device__ inline void stage_row(T* dst, const T* row, bool valid, int w_lo, int
     const int w = w_lo + e;
     const bool ok = valid && w >= 0 && w < W;
     const int slot = S == 1 ? e : (e & 1) * PLANE + (e >> 1);
-    cp_async16(dst + slot * P + q * vec<T>(), ok ? row + static_cast<long long>(w) * C + q * vec<T>() : row,
-               ok);
+    cp_async16(dst + slot * P + q * vec<T>(),
+               ok ? row + static_cast<long long>(w) * LD + q * vec<T>() : row, ok);
   }
 }
 

@@ -8,13 +8,15 @@
 // float32; a 2-D conv is the case Dx = Dg = 1.  As a GEMM: M = taps * C,
 // N = CO, K = positions.
 //
-// A block owns one tap group (kd, kh), so 3 C CO accumulators, and one
-// chunk of the cotangent's rows (a row is one (n, d, h) line of Wg
-// positions).  It walks its rows in segments of TW positions, RS segments
+// A block owns one tap group (kd, kh) and one tile of COB of the CO
+// output channels (COB = CO but at 128 -> 128, where 3 C CO accumulators
+// would not fit the registers), so 3 C COB accumulators, and one chunk of
+// the cotangent's rows (a row is one (n, d, h) line of Wg positions).  It walks its rows in segments of TW positions, RS segments
 // per stage: for each segment it stages the g row segment and the x row
 // segment its three kw taps read (TW + 2 columns with the halo, or, for
 // S = 2, 2 TW + 1 columns split into even and odd parity planes as in
-// conv_k3.cuh), zero-filled outside the volume, then runs the MMAs.  The
+// conv_k3.cuh), zero-filled outside the volume (a ragged last segment
+// stages zero cotangent columns, which add nothing), then runs the MMAs.  The
 // A operand (x as M x K) lies in shared memory k-major, so it is read with
 // ldmatrix.trans, and tap kw is the staged rows shifted by kw (parity
 // plane and offset for S = 2): no im2col buffer.  Warps split M x N 2 x 2.
@@ -22,8 +24,9 @@
 // Each block writes its f32 partial dK (its tap group's slice) to its own
 // slot of a workspace; dk_reduce then adds the chunks' partials in chunk
 // order.  No float atomics: dK is the same bits on every run.  Blocks of
-// one chunk have neighbouring indices (the tap group varies fastest), so
-// the 3 or 9 tap groups that re-read the same rows find them in L2.
+// one chunk have neighbouring indices (the tap group varies fastest, then
+// the Co tile), so the 3 or 9 tap groups and the Co tiles that re-read the
+// same rows find them in L2.
 #pragma once
 
 #include <algorithm>
@@ -32,24 +35,26 @@
 
 namespace dsm {
 
-template <typename T, int KD, int S, int C, int CO, int TW, int RS>
+template <typename T, int KD, int S, int C, int CO, int TW, int RS, int COB = CO>
 struct DkK3 {
   static constexpr int kS = S, kC = C, kTW = TW;
+  static constexpr int NCOB = CO / COB;                  // Co tiles per tap group
   static constexpr int P = pitch<T>(C);                  // staged x row pitch
-  static constexpr int PB = pitch<T>(CO);                // staged g row pitch
+  static constexpr int PB = pitch<T>(COB);               // staged g row pitch
   static constexpr int PLANE = TW + 1;                   // stride 2: slots per parity plane
   static constexpr int XLEN = (TW - 1) * S + 3;          // x columns a segment reads
   static constexpr int XROW = (S == 1 ? XLEN : 2 * PLANE) * P;
   static constexpr int GROW = TW * PB;
   static constexpr int WM = 2, WN = 2;                   // warp grid over M x N
   static constexpr int MI = 3 * C / 16 / WM;             // m16 tiles per warp
-  static constexpr int NI = CO / 8 / WN;                 // n8 tiles per warp
+  static constexpr int NI = COB / 8 / WN;                // n8 tiles per warp
   static constexpr int TAPS = KD * 9;
   static constexpr int TOTAL = TAPS * C * CO;            // elements of dK
   static constexpr size_t SMEM = static_cast<size_t>(RS) * (XROW + GROW) * sizeof(T);
   static_assert(WM * WN == kWarps && (3 * C / 16) % WM == 0 && NI % 2 == 0,
                 "tile does not fit the warps");
-  static_assert(TW % 16 == 0 && C % 16 == 0 && CO % 16 == 0, "unsupported widths");
+  static_assert(TW % 16 == 0 && C % 16 == 0 && COB % 16 == 0 && CO % COB == 0,
+                "unsupported widths");
 };
 
 // column slot of tap kw's first input column in a staged x segment
@@ -127,17 +132,19 @@ __device__ __forceinline__ void dk_tile(float (&c)[Cfg::MI][Cfg::NI][4], const f
   }
 }
 
-// Grid: (KD * 3 tap groups, chunks).  ws: chunks x TOTAL f32 partials.
-template <typename T, int KD, int S, int C, int CO, int TW, int RS>
+// Grid: (KD * 3 tap groups x NCOB Co tiles, chunks).  ws: chunks x TOTAL
+// f32 partials.
+template <typename T, int KD, int S, int C, int CO, int TW, int RS, int COB>
 __global__ void __launch_bounds__(kThreads)
     dk_k3_kernel(const T* __restrict__ x, const T* __restrict__ g, float* __restrict__ ws, int Dx,
                  int Hx, int Wx, int Dg, int Hg, int Wg, int rows, int rows_per_chunk) {
-  using Cfg = DkK3<T, KD, S, C, CO, TW, RS>;
+  using Cfg = DkK3<T, KD, S, C, CO, TW, RS, COB>;
   extern __shared__ __align__(128) unsigned char smem[];
   T* s_x = reinterpret_cast<T*>(smem);                  // [RS][XROW]
   T* s_g = s_x + RS * Cfg::XROW;                        // [RS][TW][PB]
 
-  const int tg = blockIdx.x;
+  const int tg = blockIdx.x % (KD * 3);
+  const int o0 = blockIdx.x / (KD * 3) * COB;           // the block's first output channel
   const int kd = tg / 3, kh = tg - kd * 3;
   const int r_lo = blockIdx.y * rows_per_chunk;
   const int r_hi = min(rows, r_lo + rows_per_chunk);
@@ -164,8 +171,8 @@ __global__ void __launch_bounds__(kThreads)
       const bool valid = di >= 0 && di < Dx && hi >= 0 && hi < Hx;
       const T* xrow = valid ? x + ((static_cast<long long>(n) * Dx + di) * Hx + hi) * Wx * C : x;
       stage_row<T, C, S, Cfg::PLANE>(s_x + s * Cfg::XROW, xrow, valid, w0 * S - 1, Cfg::XLEN, Wx);
-      stage_row<T, CO, 1, 0>(s_g + s * Cfg::GROW, g + static_cast<long long>(r) * Wg * CO, true,
-                             w0, TW, Wg);
+      stage_row<T, COB, 1, 0, CO>(s_g + s * Cfg::GROW, g + static_cast<long long>(r) * Wg * CO + o0,
+                                  true, w0, TW, Wg);
     }
     cp_async_wait_all();
     __syncthreads();
@@ -174,10 +181,10 @@ __global__ void __launch_bounds__(kThreads)
     __syncthreads();
   }
 
-  // this block's partial: rows kw * C + c of tap group tg, columns o
+  // this block's partial: rows kw * C + c of tap group tg, columns o0 + o
   const int lane = threadIdx.x & 31;
   const int gq = lane >> 2, tq = lane & 3;
-  float* out = ws + static_cast<long long>(blockIdx.y) * Cfg::TOTAL + tg * 3 * C * CO;
+  float* out = ws + static_cast<long long>(blockIdx.y) * Cfg::TOTAL + tg * 3 * C * CO + o0;
 #pragma unroll
   for (int mi = 0; mi < Cfg::MI; ++mi) {
     const int m = (wm * Cfg::MI + mi) * 16 + gq;
@@ -204,11 +211,11 @@ static __global__ void __launch_bounds__(256)
 // x (N, Dx, Hx, Wx, C) and g (N, Dg, Hg, Wg, CO) with Dg = Dx, ... for S = 1
 // and Dg = Dx / 2, ... for S = 2 (Dx = Dg = 1 for a 2-D conv); ws holds
 // `chunks` partials of TOTAL floats.
-template <typename T, int KD, int S, int C, int CO, int TW, int RS>
+template <typename T, int KD, int S, int C, int CO, int TW, int RS, int COB = CO>
 cudaError_t launch_dk_k3(const void* x, const void* g, void* dk, void* ws, int N, int Dx, int Hx,
                          int Wx, int Dg, int Hg, int Wg, int chunks, cudaStream_t stream) {
-  using Cfg = DkK3<T, KD, S, C, CO, TW, RS>;
-  auto kernel = dk_k3_kernel<T, KD, S, C, CO, TW, RS>;
+  using Cfg = DkK3<T, KD, S, C, CO, TW, RS, COB>;
+  auto kernel = dk_k3_kernel<T, KD, S, C, CO, TW, RS, COB>;
   static std::atomic<uint32_t> smem_set{0};
   cudaError_t err = set_smem_once(kernel, Cfg::SMEM, smem_set);
   if (err != cudaSuccess) return err;
@@ -216,7 +223,7 @@ cudaError_t launch_dk_k3(const void* x, const void* g, void* dk, void* ws, int N
   if (rows <= 0 || chunks <= 0) return cudaErrorInvalidValue;
   chunks = std::min(chunks, rows);
   const int rows_per_chunk = (rows + chunks - 1) / chunks;
-  kernel<<<dim3(KD * 3, chunks), kThreads, Cfg::SMEM, stream>>>(
+  kernel<<<dim3(KD * 3 * Cfg::NCOB, chunks), kThreads, Cfg::SMEM, stream>>>(
       static_cast<const T*>(x), static_cast<const T*>(g), static_cast<float*>(ws), Dx, Hx, Wx, Dg,
       Hg, Wg, rows, rows_per_chunk);
   err = cudaGetLastError();

@@ -76,12 +76,18 @@ class _DispDecoder(nn.Module):
         return scales, outs
 
 
+def _head_dtype(o: torch.Tensor) -> torch.Tensor:
+    """A head in float32, or float64 for a float64 model."""
+    return o.to(torch.promote_types(o.dtype, torch.float32))
+
+
 def _finalize(scales, outs, im_shape, clamp: bool, maxdisp: int, delt: float = 1e-6):
-    """Upsample pr1 to full resolution, crop to the input, heads to float32,
-    clamp ``disps[0]`` when asked (``dispnet.py:67-77``)."""
+    """Upsample pr1 to full resolution, crop to the input, heads to float32
+    (float64 stays float64, as the port's soft-argmin keeps it), clamp
+    ``disps[0]`` when asked (``dispnet.py:67-77``)."""
     h, w = im_shape[1], im_shape[2]
     outs = [upsample_bilinear(outs[0], 2)[:, :h, :w, :]] + outs
-    outs = [o.float() for o in outs]
+    outs = [_head_dtype(o) for o in outs]
     if clamp:
         outs[0] = outs[0].clamp(delt, max(maxdisp, w))
     return [0] + scales, outs
@@ -115,15 +121,16 @@ class DispNet(nn.Module):
 
 
 class DispNetC(nn.Module):
-    """Siamese conv1/conv2 + 1-D correlation (D = 41) + redir skip
-    (reference models/dispnetcorr.py:25-79)."""
+    """Siamese conv1/conv2 + 1-D correlation (``corr_d`` shifts, 41 by
+    default, JAX ``dispnet.py:112``) + redir skip (reference
+    models/dispnetcorr.py:25-79)."""
 
     count_levels = 7
-    corr_d = 41
 
-    def __init__(self, maxdisparity: int = 192):
+    def __init__(self, maxdisparity: int = 192, corr_d: int = 41):
         super().__init__()
         self.maxdisparity = maxdisparity
+        self.corr_d = corr_d
         self.conv1 = _conv(3, 64, 7, 2)
         self.conv2 = _conv(64, 128, 5, 2)
         self.redir = _conv(128, 64, 1, 1)

@@ -15,6 +15,12 @@ folded pathway is a TPU layout of the same math and parameter tree.
   * soft-argmin of the negated cost over the maxdisparity bins of l37's
     output, cropped to the input size.
 
+``remat`` recomputes each 3-D stage (a conv or deconv with its BN and
+ReLU) in the backward, with the volume built inside the two stages that
+read it (l21 and l19 + l20), so that it is never kept for the backward:
+the JAX folded pathway's remat (``gcnet.py:88-167``).  l37 is kept, as
+in JAX.
+
 ``forward`` returns ``([0], [disp])`` like the JAX model's ``apply``.
 """
 
@@ -25,7 +31,7 @@ import torch.nn as nn
 
 from ..ops.cost_volume import concat_cost_volume
 from ..ops.softargmin import soft_argmin
-from .layers import ConvBN, DeconvBN, ResStackGC, crop_add, reset_parameters, siamese
+from .layers import ConvBN, DeconvBN, ResStackGC, crop_add, remat, reset_parameters, siamese
 
 __all__ = ["GCNet"]
 
@@ -58,23 +64,34 @@ class _Feature3D(nn.Module):
     _DECONVS = (("l33", 4 * _F, 2 * _F), ("l34", 2 * _F, 2 * _F), ("l35", 2 * _F, 2 * _F),
                 ("l36", 2 * _F, _F))
 
-    def __init__(self):
+    def __init__(self, remat: bool = False):
         super().__init__()
+        self.remat = remat
         for name, cin, f, s in self._CONVS:
             self.add_module(name, ConvBN(cin, f, 3, s, dims=3, bn=True, use_bias=True))
         for name, cin, f in self._DECONVS:
             self.add_module(name, DeconvBN(cin, f, 3, 2, dims=3, bn=True))
         self.l37 = DeconvBN(_F, 1, 3, 2, dims=3, bn=False, relu=False)
 
-    def forward(self, vol):
-        x21 = self.l21(vol)
-        x24 = self.l24(x21)
-        x27 = self.l27(x24)
-        x32 = self.l32(self.l31(self.l30(x27)))
-        x33 = crop_add(self.l33(x32), self.l29(self.l28(x27)))
-        x34 = crop_add(self.l34(x33), self.l26(self.l25(x24)))
-        x35 = crop_add(self.l35(x34), self.l23(self.l22(x21)))
-        x36 = crop_add(self.l36(x35), self.l20(self.l19(vol)))
+    def forward(self, fL, fR, D: int):
+        """The hourglass over the (N, D, H, W, 64) concat volume of fL and fR."""
+        def vol(a, b):
+            return concat_cost_volume(a, b, D, mask_left=False)
+
+        run = remat if self.remat else (lambda m, *a: m(*a))
+        if self.remat:  # the volume built inside the two stages that read it
+            x21 = remat(lambda a, b: self.l21(vol(a, b)), fL, fR)
+            skip = lambda: remat(lambda a, b: self.l20(self.l19(vol(a, b))), fL, fR)
+        else:
+            v = vol(fL, fR)
+            x21, skip = self.l21(v), lambda: self.l20(self.l19(v))
+        x24 = run(self.l24, x21)
+        x27 = run(self.l27, x24)
+        x32 = run(self.l32, run(self.l31, run(self.l30, x27)))
+        x33 = crop_add(run(self.l33, x32), run(self.l29, run(self.l28, x27)))
+        x34 = crop_add(run(self.l34, x33), run(self.l26, run(self.l25, x24)))
+        x35 = crop_add(run(self.l35, x34), run(self.l23, run(self.l22, x21)))
+        x36 = crop_add(run(self.l36, x35), skip())
         # (N, 2D, H, W, 1) -> soft-argmin over the doubled disparity axis
         return soft_argmin(self.l37(x36)[..., 0], negate=True)
 
@@ -84,11 +101,11 @@ class GCNet(nn.Module):
 
     count_levels = 1
 
-    def __init__(self, maxdisparity: int = 192):
+    def __init__(self, maxdisparity: int = 192, remat: bool = False):
         super().__init__()
         self.maxdisparity = maxdisparity
         self.layer2d = _Feature2D()
-        self.layer3d = _Feature3D()
+        self.layer3d = _Feature3D(remat)
 
     def reset_parameters(self, generator: torch.Generator) -> "GCNet":
         """Seeded weights: kernels and biases drawn from ``generator``, BN at identity."""
@@ -98,9 +115,8 @@ class GCNet(nn.Module):
         if imL.shape != imR.shape:
             raise ValueError(f"image shapes differ: {tuple(imL.shape)} vs {tuple(imR.shape)}")
         fL, fR = siamese(self.layer2d, imL, imR)
-        vol = concat_cost_volume(fL, fR, self.maxdisparity // 2, mask_left=False)
         h, w = imL.shape[1], imL.shape[2]
-        disp = self.layer3d(vol)[:, :h, :w, :]
+        disp = self.layer3d(fL, fR, self.maxdisparity // 2)[:, :h, :w, :]
         if clamp:
             disp = disp.clamp(1e-6, max(self.maxdisparity, w))
         return [0], [disp]

@@ -14,7 +14,8 @@ flax tree.
 
 ``forward`` returns ``(scales, disps)``: per iteration r_pr0, r_pr1, r_pr2
 (scales 0, 1, 2) in front of pr0 .. pr6 (scales 0 .. 6), the heads in
-float32 and ``disps[0]`` clamped to [1e-6, max(maxdisparity, W)] when asked.
+float32 (float64 for a float64 model) and ``disps[0]`` clamped to [1e-6,
+max(maxdisparity, W)] when asked.
 """
 
 from __future__ import annotations
@@ -25,7 +26,7 @@ import torch.nn as nn
 from ..ops.corr import corr1d
 from ..ops.resize import upsample2x
 from ..ops.warp import imwarp
-from .dispnet import _LEVELS, _PrHead, _conv
+from .dispnet import _LEVELS, _PrHead, _conv, _head_dtype
 from .layers import DeconvBN, crop_cat, reset_parameters
 
 __all__ = ["IResNet"]
@@ -136,7 +137,7 @@ class IResNet(nn.Module):
             outs[:0] = [r_pr0, r_pr1, r_pr2]
             scales[:0] = [0, 1, 2]
 
-        outs = [o.float() for o in outs]
+        outs = [_head_dtype(o) for o in outs]
         if clamp:
             outs[0] = outs[0].clamp(1e-6, max(self.maxdisparity, w))
         return scales, outs

@@ -26,6 +26,7 @@ from typing import Callable, Sequence
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
+import torch.utils.checkpoint
 
 from ..ops.conv2d import conv2d_same
 from ..ops.conv3d import conv3d_s2, conv3d_same, deconv3d_k3s2
@@ -34,10 +35,12 @@ __all__ = [
     "compute_dtype", "default_dtype", "conv_kernel_init", "scaled_conv_kernel_init",
     "torch_fanin_uniform", "fanin_uniform", "Kernel", "LeanBN", "ConvBN", "DeconvBN",
     "ResBlockPSM", "ResBlockGC", "ResStackGC", "siamese", "crop_add", "crop_cat",
-    "reset_parameters", "calibrate_batch_stats",
+    "reset_parameters", "calibrate_batch_stats", "remat",
 ]
 
 _compute_dtype = contextvars.ContextVar("dsmnet_torch_compute_dtype", default=None)
+# set while torch.utils.checkpoint recomputes a segment in the backward
+_recomputing = contextvars.ContextVar("dsmnet_torch_recomputing", default=False)
 
 
 @contextlib.contextmanager
@@ -52,6 +55,28 @@ def compute_dtype(dtype):
 
 def default_dtype():
     return _compute_dtype.get()
+
+
+@contextlib.contextmanager
+def _recompute(dtype):
+    token, dtoken = _recomputing.set(True), _compute_dtype.set(dtype)
+    try:
+        yield
+    finally:
+        _compute_dtype.reset(dtoken)
+        _recomputing.reset(token)
+
+
+def remat(fn, *args):
+    """``fn(*args)`` with its activations recomputed in the backward instead
+    of kept (``torch.utils.checkpoint``, non-reentrant), as flax's
+    ``nn.remat``.  The recomputation runs in the compute dtype of the
+    forward (the backward may run on another thread) and, as the flax
+    recomputation mutates nothing, leaves the BN running statistics alone."""
+    dt = default_dtype()
+    return torch.utils.checkpoint.checkpoint(
+        fn, *args, use_reentrant=False,
+        context_fn=lambda: (contextlib.nullcontext(), _recompute(dt)))
 
 
 def conv_kernel_init(shape, generator: torch.Generator) -> torch.Tensor:
@@ -150,7 +175,8 @@ class LeanBN(nn.Module):
     momentum 0.9, statistics in float32 (float64 for a float64 input),
     and normalization as x * inv + off with inv/off cast to x's dtype.
     In train mode the batch statistics carry the gradient; the running
-    statistics update without one."""
+    statistics update without one, and not again when :func:`remat`
+    recomputes the layer in the backward."""
 
     def __init__(self, features: int, momentum: float = 0.9, epsilon: float = 1e-5):
         super().__init__()
@@ -173,16 +199,20 @@ class LeanBN(nn.Module):
         if self.training:
             mean, sq = _Moments.apply(x, torch.promote_types(x.dtype, torch.float32))
             var = sq - mean * mean
-            with torch.no_grad():
-                m = self.momentum
-                self.mean.copy_(m * self.mean + (1 - m) * mean)
-                self.var.copy_(m * self.var + (1 - m) * var)
+            if not _recomputing.get():
+                self._update_running(mean, var)
         else:
             mean, var = self.mean, self.var
         rs = torch.rsqrt(var + self.epsilon)
         inv = (rs * self.scale).to(x.dtype)
         off = (self.bias - mean * self.scale * rs).to(x.dtype)
         return x * inv + off
+
+    @torch.no_grad()
+    def _update_running(self, mean, var):
+        m = self.momentum
+        self.mean.copy_(m * self.mean + (1 - m) * mean)
+        self.var.copy_(m * self.var + (1 - m) * var)
 
 
 def _tup(v, n):
@@ -235,12 +265,13 @@ class ConvBN(nn.Module):
             return conv3d_s2(x, kern)
         if self.fast2d:
             return conv2d_same(x, kern)
+        # a contiguous weight: at Cout = 1 the CPU conv's backward refuses a view
         if self.dims == 2:
-            y = F.conv2d(x.permute(0, 3, 1, 2), kern.permute(3, 2, 0, 1), stride=self.s,
-                         padding=self.pad, dilation=self.dil)
+            y = F.conv2d(x.permute(0, 3, 1, 2), kern.permute(3, 2, 0, 1).contiguous(),
+                         stride=self.s, padding=self.pad, dilation=self.dil)
             return y.permute(0, 2, 3, 1)
-        y = F.conv3d(x.permute(0, 4, 1, 2, 3), kern.permute(4, 3, 0, 1, 2), stride=self.s,
-                     padding=self.pad, dilation=self.dil)
+        y = F.conv3d(x.permute(0, 4, 1, 2, 3), kern.permute(4, 3, 0, 1, 2).contiguous(),
+                     stride=self.s, padding=self.pad, dilation=self.dil)
         return y.permute(0, 2, 3, 4, 1)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:

@@ -27,7 +27,8 @@ __all__ = ["conv2d_same", "conv2d_k3", "conv2d_k3_plain", "conv2d_dk_k3", "conv2
 
 def conv2d_k3_plain(x: torch.Tensor, k: torch.Tensor) -> torch.Tensor:
     """Plain version: x (N,H,W,C), k (3,3,C,Co) HWIO -> (N,H,W,Co)."""
-    y = F.conv2d(x.permute(0, 3, 1, 2), k.permute(3, 2, 0, 1), padding=1)
+    # a contiguous weight: at Cout = 1 the CPU conv's backward refuses a view
+    y = F.conv2d(x.permute(0, 3, 1, 2), k.permute(3, 2, 0, 1).contiguous(), padding=1)
     return y.permute(0, 2, 3, 1)
 
 

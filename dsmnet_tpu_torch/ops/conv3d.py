@@ -10,7 +10,8 @@ PyTorch version with plain autograd for the rest:
     128 (GCNet's l31/l32) (``_Conv3dK3``, JAX ``_s1_bwd``
     ``folded.py:120-141``): forward and dx on kernel B
     (``csrc/conv3d_k3.cu``; dx with the flipped, channel-swapped kernel),
-    dK on kernel F (``csrc/conv3d_dk_k3.cu``), plain at 128 channels.
+    dK on kernel F (``csrc/conv3d_dk_k3.cu``; at 128 -> 128 its partials
+    planned by :func:`dk_k3_128_chunks`).
     The Cout=1 classifier head stays plain, as JAX computes it outside
     Pallas (``folded.py:170-206``).
   * ``conv3d_s2`` — 3x3x3 stride 2 pad 1, even D/H/W, C in {32, 64},
@@ -140,6 +141,20 @@ def s2_fwd_runs(do: int, run: int) -> list[tuple[int, int]]:
     return [(d0, min(do, d0 + run)) for d0 in range(0, do, run)]
 
 
+# Kernel F at 128 -> 128 (csrc/conv3d_dk_k3.cu): blocks per chunk (9 tap
+# groups x 4 tiles of 32 output channels) and blocks resident per SM
+DK_K3_128_BLOCKS, DK_K3_128_BLOCKS_PER_SM = 36, 2
+
+
+def dk_k3_128_chunks(rows: int, sms: int) -> int:
+    """Partials of kernel F at 128 -> 128 for ``rows`` cotangent rows: as
+    many chunks as make its blocks fill ``sms`` SMs at two a SM, with no
+    empty chunk.  (At C, Co in {32, 64} F takes one chunk per row, at most
+    ``_build.DK_CHUNKS``.)"""
+    per = _cdiv(rows, _cdiv(sms * DK_K3_128_BLOCKS_PER_SM, DK_K3_128_BLOCKS))
+    return _cdiv(rows, per)
+
+
 def s2_dk_rows(n: int, d: int, h: int, w: int) -> int:
     """Cotangent rows (n, od, w-segment, oh) that kernel G's bf16 walk sums
     for x (n, d, h, w, C)."""
@@ -164,7 +179,8 @@ def conv3d_k3_ok(x, k) -> bool:
 
 def conv3d_dk_k3_ok(x, g) -> bool:
     return (x.dim() == 5 and g.dim() == 5 and g.shape[:4] == x.shape[:4]
-            and x.shape[-1] in (32, 64) and g.shape[-1] in (32, 64))
+            and ((x.shape[-1] in (32, 64) and g.shape[-1] in (32, 64))
+                 or (x.shape[-1], g.shape[-1]) == (128, 128)))
 
 
 def conv3d_k3(x: torch.Tensor, k: torch.Tensor) -> torch.Tensor:
@@ -230,18 +246,21 @@ def deconv3d_k3s2_kernel(x: torch.Tensor, k: torch.Tensor) -> torch.Tensor:
 
 def conv3d_dk_k3(x: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
     """Kernel F wrapper: dK (3,3,3,C,Co) float32 of the stride-1 SAME conv
-    from x (N,D,H,W,C) and the cotangent g (N,D,H,W,Co), C, Co in {32, 64}."""
+    from x (N,D,H,W,C) and the cotangent g (N,D,H,W,Co), C, Co in {32, 64}
+    or 128 -> 128."""
     _build.require_no_grad("conv3d_dk_k3", x, g)
     if not config.launches_kernel("conv3d", x):
         return conv3d_dk_plain(x, g)
     _build.require_cuda("conv3d_dk_k3", x, g)
     if not conv3d_dk_k3_ok(x, g):
         raise ValueError(f"conv3d_dk_k3 takes x (N,D,H,W,C), g (N,D,H,W,Co), C, Co in "
-                         f"{{32, 64}}; got {tuple(x.shape)}, {tuple(g.shape)}")
+                         f"{{32, 64}} or 128 -> 128; got {tuple(x.shape)}, {tuple(g.shape)}")
     n, d, h, w, c = x.shape
     co = g.shape[-1]
-    return _build.launch_dk("conv3d_dk_k3", x, g, 27, (n, d, h, w, c, co), n * d * h).reshape(
-        3, 3, 3, c, co)
+    rows = n * d * h
+    chunks = dk_k3_128_chunks(rows, _build.sm_count(x.device.index)) if c == 128 else None
+    return _build.launch_dk("conv3d_dk_k3", x, g, 27, (n, d, h, w, c, co), rows,
+                            chunks).reshape(3, 3, 3, c, co)
 
 
 def conv3d_s2_dk_k3(x: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
@@ -268,8 +287,7 @@ def conv3d_s2_dk_k3(x: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
 # ------------------------------------------------------ autograd Functions
 
 class _Conv3dK3(torch.autograd.Function):
-    """Kernel B forward; B (dx) and F (dK, C and Co in {32, 64}; plain at
-    128 channels) backward."""
+    """Kernel B forward; B (dx) and F (dK) backward."""
 
     @staticmethod
     def forward(ctx, x, k):
@@ -285,8 +303,7 @@ class _Conv3dK3(torch.autograd.Function):
         if ctx.needs_input_grad[0]:
             dx = conv3d_k3(g, k.flip((0, 1, 2)).transpose(3, 4).contiguous())
         if ctx.needs_input_grad[1]:
-            dk = (conv3d_dk_k3(x, g) if conv3d_dk_k3_ok(x, g) else conv3d_dk_plain(x, g)).to(
-                k.dtype)
+            dk = conv3d_dk_k3(x, g).to(k.dtype)
         return dx, dk
 
 

@@ -18,6 +18,8 @@ on the CPU:
     ~1e-5);
   * the fused stem's hand backward against the JAX ``_stem_bwd`` and
     exact autodiff of the JAX tap-map decomposition, float64;
+  * the routing of the 128 -> 128 dK to kernel F's wrapper, and the
+    backward of the Cout = 1 3x3 conv against ``jax.vjp``, float64;
   * the graph rules: each op's output carries its ``Function``, and a
     kernel wrapper handed an operand that requires grad raises; a
     weight-gradient wrapper forced to its kernel refuses a CPU tensor.
@@ -69,7 +71,7 @@ VJP_CASES = {
                            (1, 3, 5, 6, 64), (3, 3, 3, 64, 64), "_Conv3dK3"),
     "conv3d_same_32to64": (j_conv3d.conv3d_same, _lax_conv3d_same, t_ops.conv3d_same,
                            (1, 3, 4, 5, 32), (3, 3, 3, 32, 64), "_Conv3dK3"),
-    # GCNet's l31/l32: forward and dx on kernel B, dK plain
+    # GCNet's l31/l32: forward and dx on kernel B, dK on kernel F
     "conv3d_same_128to128": (j_conv3d.conv3d_same, _lax_conv3d_same, t_ops.conv3d_same,
                              (1, 2, 3, 4, 128), (3, 3, 3, 128, 128), "_Conv3dK3"),
     "conv3d_s2_32to64": (j_conv3d.conv3d_s2, j_conv3d._conv_s2_native, t_ops.conv3d_s2,
@@ -145,6 +147,9 @@ DK_CASES = {
                                   (1, 6, 8, 16, 32)),
     "conv3d_dk_2x4x8x8_64to32": (t_conv3d.conv3d_dk_k3, _pallas_conv3d_dk, (2, 4, 8, 8, 64),
                                  (2, 4, 8, 8, 32)),
+    # GCNet's l31/l32 (W = 8 passes the Pallas gate _s1_pallas_ok at 128)
+    "conv3d_dk_1x4x8x8_128to128": (t_conv3d.conv3d_dk_k3, _pallas_conv3d_dk, (1, 4, 8, 8, 128),
+                                   (1, 4, 8, 8, 128)),
     "conv3d_s2_dk_1x4x8x16_32to64": (t_conv3d.conv3d_s2_dk_k3, _pallas_conv3d_s2_dk,
                                      (1, 4, 8, 16, 32), (1, 2, 4, 8, 64)),
     "deconv_dw_1x3x4x32_64to32": (t_conv3d.conv3d_s2_dk_k3, _pallas_deconv_dw,
@@ -257,3 +262,44 @@ def test_dk_wrapper_refuses_cpu_tensor_when_forced(name, monkeypatch):
         with pytest.raises(RuntimeError, match="runs on CUDA tensors"):
             wrapper(torch.zeros(xs), torch.zeros(gs))
     assert _build.LAUNCHES == before
+
+
+def test_conv3d_128to128_dk_routes_to_kernel_f(rng, monkeypatch):
+    """At 128 -> 128 (GCNet's l31/l32) the backward of ``conv3d_same``
+    hands dK to kernel F's wrapper, as JAX's ``_s1_bwd`` hands it to
+    ``conv3d_dk_pallas_folded``, and the gate admits that shape set only."""
+    x = torch.from_numpy(_rand(rng, 1, 2, 3, 8, 128)).requires_grad_()
+    k = torch.from_numpy(_rand(rng, 3, 3, 3, 128, 128, scale=0.01)).requires_grad_()
+    seen = []
+
+    def spy(a, g, _orig=t_conv3d.conv3d_dk_k3):
+        seen.append((tuple(a.shape), tuple(g.shape), t_conv3d.conv3d_dk_k3_ok(a, g)))
+        return _orig(a, g)
+
+    monkeypatch.setattr(t_conv3d, "conv3d_dk_k3", spy)
+    t_ops.conv3d_same(x, k).sum().backward()
+    assert seen == [((1, 2, 3, 8, 128), (1, 2, 3, 8, 128), True)]
+    ref = t_conv3d.conv3d_dk_plain(x.detach(), torch.ones(1, 2, 3, 8, 128, dtype=x.dtype))
+    np.testing.assert_allclose(k.grad.numpy(), ref.numpy(), rtol=1e-12, atol=1e-12)
+    ok = t_conv3d.conv3d_dk_k3_ok
+    z = lambda c: torch.zeros(1, 2, 3, 8, c)
+    assert ok(z(128), z(128)) and ok(z(32), z(64))
+    assert not ok(z(64), z(128)) and not ok(z(128), z(64)) and not ok(z(128), z(32))
+
+
+@pytest.mark.parametrize("c", [32, 64, 1024])
+def test_conv2d_same_cout1_backward_matches_jax_f64(c, rng):
+    """The Cout = 1 3x3 conv of every DispNet/DispNetC/iResNet disparity head
+    backpropagates on the CPU (the plain version passes a contiguous
+    weight), and both gradients match ``jax.vjp`` of the JAX op to 1e-12."""
+    x, k = _rand(rng, 1, 8, 16, c), _rand(rng, 3, 3, c, 1, scale=0.1)
+    with jax.enable_x64():
+        y, vjp = jax.vjp(j_conv2d.conv2d_same, jnp.asarray(x), jnp.asarray(k))
+        g = _rand(rng, *y.shape)
+        ref_dx, ref_dk = (np.asarray(a) for a in vjp(jnp.asarray(g)))
+    tx, tk = (torch.from_numpy(a).requires_grad_() for a in (x, k))
+    ty = t_ops.conv2d_same(tx, tk)
+    np.testing.assert_allclose(ty.detach().numpy(), np.asarray(y), rtol=1e-12, atol=1e-12)
+    ty.backward(torch.from_numpy(g))
+    np.testing.assert_allclose(tx.grad.numpy(), ref_dx, rtol=1e-12, atol=1e-12)
+    np.testing.assert_allclose(tk.grad.numpy(), ref_dk, rtol=1e-12, atol=1e-12)

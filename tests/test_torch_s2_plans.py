@@ -1,8 +1,9 @@
-"""Launch plans of kernels C and G (the stride-2 3x3x3 conv and its dK).
+"""Launch plans of kernels C and G (the stride-2 3x3x3 conv and its dK),
+and of kernel F (the stride-1 dK) at 128 -> 128.
 
 The wrappers in ``dsmnet_tpu_torch/ops/conv3d.py`` size kernel C's D-runs
-and kernel G's partials in Python; the CUDA kernels cut their grids by the
-same formulas.  These tests hold the plans at PSMNet's and GCNet's
+and kernel G's and F's partials in Python; the CUDA kernels cut their
+grids by the same formulas.  These tests hold the plans at PSMNet's and GCNet's
 main-path shapes and at ``chip_smoke.py``'s ragged edge shapes: every
 output voxel of C and every cotangent position of G is covered exactly
 once, and the wrappers pass the planned arguments (G: as many partials as
@@ -146,3 +147,51 @@ def test_s2_dk_wrapper_allocates_one_partial_per_chunk(shape, monkeypatch):
     chunks = conv3d.s2_dk_chunks(conv3d.s2_dk_rows(n, d, h, w), c, 132)
     assert name == "conv3d_dk_k3s2" and args[-1] == chunks
     assert (chunks, 27 * c * 64) in empties
+
+
+# kernel F at 128 -> 128: GCNet's l31/l32 at 384x768 (batch 1 and 2) and
+# at chip_smoke's grad_gcnet_f32 size, then chip_smoke's edges
+_F128_SHAPES = [(1, 6, 12, 24, 128), (2, 6, 12, 24, 128), (1, 3, 6, 12, 128),
+                (1, 2, 3, 8, 128), (1, 2, 5, 24, 128), (2, 3, 4, 40, 128)]
+
+
+@pytest.mark.parametrize("sms", [132, 114])
+@pytest.mark.parametrize("shape", _F128_SHAPES, ids=_shape_id)
+def test_dk_k3_128_chunks_cover_every_row_once(shape, sms):
+    """Kernel F's chunks at 128 -> 128 are contiguous, non-empty ranges of
+    the cotangent's (n, d, h) rows that cover each row exactly once, and
+    its 36 blocks a chunk fill the SMs twice over where the rows allow."""
+    n, d, h, w, c = shape
+    rows = n * d * h
+    chunks = conv3d.dk_k3_128_chunks(rows, sms)
+    ranges = _chunk_ranges(rows, chunks)
+    assert len(ranges) == chunks and ranges[0][0] == 0 and ranges[-1][1] == rows
+    assert all(lo < hi for lo, hi in ranges)
+    assert all(a[1] == b[0] for a, b in zip(ranges, ranges[1:]))
+    # as many chunks as put two blocks on every SM, at most, each of the
+    # fewest rows that lets that many chunks cover the rows
+    target = -(-2 * sms // conv3d.DK_K3_128_BLOCKS)
+    assert chunks <= target and -(-rows // chunks) == -(-rows // target)
+
+
+@pytest.mark.parametrize("shape", [(1, 6, 12, 24, 128), (1, 2, 3, 8, 128)], ids=_shape_id)
+def test_dk_k3_128_wrapper_allocates_one_partial_per_chunk(shape, monkeypatch):
+    calls = _forced_launch(monkeypatch)
+    empties = []
+    real_empty = torch.empty
+
+    def spy_empty(*a, **kw):
+        t = real_empty(*a, **kw)
+        empties.append(tuple(t.shape))
+        return t
+
+    monkeypatch.setattr(torch, "empty", spy_empty)
+    n, d, h, w, c = shape
+    x = torch.zeros(shape, dtype=torch.bfloat16)
+    with torch.no_grad():
+        dk = conv3d.conv3d_dk_k3(x, x)
+    assert tuple(dk.shape) == (3, 3, 3, 128, 128)
+    (name, args), = calls
+    chunks = conv3d.dk_k3_128_chunks(n * d * h, 132)
+    assert name == "conv3d_dk_k3" and args[-1] == chunks
+    assert (chunks, 27 * 128 * 128) in empties

@@ -76,4 +76,30 @@ def test_cli_deploy_writes_disparity_png(rng, tmp_path, monkeypatch):
          "--path_left", "L.png", "--path_right", "R.png", "--device", "cpu"]))
     _check_disparity(disp, (H, W))
     png = cv2.imread(str(tmp_path / "dispL.png"), cv2.IMREAD_UNCHANGED)
-    assert png is not None and png.shape == (H, W) and png.dtype == np.uint8
+    assert png is not None and png.shape == (H, W, 4) and png.dtype == np.uint8
+
+
+@pytest.mark.parametrize("flip", [False, True], ids=["left", "flip"])
+def test_cli_deploy_png_is_plt_imsave(flip, rng, tmp_path, monkeypatch):
+    """The deploy PNG holds the pixels the JAX deploy's ``plt.imsave`` writes
+    for the same disparity (``dsmnet_tpu/cli.py:166-171``): matplotlib's
+    default colormap over min..max, RGBA, the right view's map mirrored."""
+    import matplotlib
+
+    matplotlib.use("Agg")
+    import matplotlib.pyplot as plt
+
+    h, w = 64, 128
+    for name in ("L.png", "R.png"):
+        cv2.imwrite(str(tmp_path / name), np.uint8(rng.rand(h, w, 3) * 255))
+    monkeypatch.chdir(tmp_path)
+    disp = cli.deploy(cli.build_parser().parse_args(
+        ["--mode", "deploy", "--net", "dispnetcorr", "--maxdisparity", str(MAXDISP),
+         "--path_left", "L.png", "--path_right", "R.png", "--device", "cpu"]
+        + (["--flip"] if flip else [])))
+    name = "dispR.png" if flip else "dispL.png"
+    plt.imsave("ref.png", np.flip(disp, axis=-1) if flip else disp)
+    got, ref = (cv2.imread(str(tmp_path / f), cv2.IMREAD_UNCHANGED) for f in (name, "ref.png"))
+    assert got.shape == ref.shape == (h, w, 4) and got.dtype == ref.dtype == np.uint8
+    assert len(np.unique(ref.reshape(-1, 4), axis=0)) > 16  # a map, not a flat image
+    np.testing.assert_array_equal(got, ref)

@@ -17,7 +17,9 @@ those on the card):
     weights and BN statistics calibrated by one train-mode forward,
     carried into the flax tree and back by ``interop``);
   * which ops reach which kernel wrapper, as the launch counters show it
-    on the card, by shims around the wrappers.
+    on the card, by shims around the wrappers, in a forward and in a train
+    step (the tables ``chip_smoke.py`` holds the card to);
+  * DispNetC with another ``corr_d`` against JAX, float64.
 """
 
 import flax
@@ -27,7 +29,9 @@ import numpy as np
 import pytest
 import torch
 
+import chip_smoke
 from dsmnet_tpu.models import create_model as j_create_model
+from dsmnet_tpu.models import dispnet as j_dispnet
 from dsmnet_tpu.ops import corr as j_corr
 from dsmnet_tpu.ops import cost_volume as j_cost_volume
 from dsmnet_tpu.ops import softargmin as j_softargmin
@@ -40,6 +44,8 @@ from dsmnet_tpu_torch.ops import cost_volume as t_cost_volume
 from dsmnet_tpu_torch.ops import fused_costvol as t_fused
 from dsmnet_tpu_torch.ops.softargmin import soft_argmin
 from dsmnet_tpu_torch.serve import Predictor
+from dsmnet_tpu_torch.train import create_train_state, make_supervised_train_step
+from test_torch_train_zoo import _NoFloat32
 
 
 @pytest.fixture(autouse=True)
@@ -251,6 +257,83 @@ def test_model_routes_ops_to_kernel_wrappers(name, monkeypatch):
     with torch.no_grad():
         tm(torch.rand(1, h, w, 3, generator=gen), torch.rand(1, h, w, 3, generator=gen))
     assert calls == expected
+
+
+# name -> (maxdisparity, H, W, create_model kwargs, wrapper calls of one
+# train step): chip_smoke.py's TRAIN_LAUNCHES, which its train phases hold
+# every step to on the card; under GCNet's remat the backward recomputes
+# the 3-D stages' forward kernels (B 10, C 3, D 1) and the volume inside the
+# two stages that read it, which the forward also builds twice (H 2 + 2)
+TRAIN_ROUTES = {
+    "psmnet": (32, 256, 256, {}, chip_smoke.TRAIN_LAUNCHES["psmnet"]),
+    "gcnet": (32, 64, 128, {}, chip_smoke.TRAIN_LAUNCHES["gcnet"]),
+    "gcnet_remat": (32, 64, 128, {"remat": True},
+                    {**chip_smoke.TRAIN_LAUNCHES["gcnet"], "conv3d_k3": 30, "conv3d_k3s2": 7,
+                     "deconv3d_k3s2": 2, "cost_volume": 4}),
+    "psmnet_basic": (16, 256, 256, {}, chip_smoke.TRAIN_LAUNCHES["psmnet_basic"]),
+    "dispnet": (192, 64, 128, {}, chip_smoke.TRAIN_LAUNCHES["dispnet"]),
+    "dispnetcorr": (192, 64, 128, {}, chip_smoke.TRAIN_LAUNCHES["dispnetcorr"]),
+    "iresnet": (192, 64, 128, {}, chip_smoke.TRAIN_LAUNCHES["iresnet"]),
+}
+
+
+@pytest.mark.parametrize("case", sorted(TRAIN_ROUTES))
+def test_train_step_routes_ops_to_kernel_wrappers(case, monkeypatch):
+    """One supervised step's forward and backward reach each wrapper as
+    often as the card's launch counters must show it; GCNet's l31/l32 hand
+    their dK to kernel F (two of its calls at 128 -> 128)."""
+    maxdisp, h, w, kwargs, expected = TRAIN_ROUTES[case]
+    name = case.split("_remat")[0]
+    calls, f128 = {}, []
+
+    def shim(fn, key):
+        def counted(*args, **kw):
+            calls[key] = calls.get(key, 0) + 1
+            if key == "conv3d_dk_k3" and args[0].shape[-1] == 128:
+                f128.append(tuple(args[0].shape))
+            return fn(*args, **kw)
+        return counted
+
+    for module, attr, key in _WRAPPERS:
+        monkeypatch.setattr(module, attr, shim(getattr(module, attr), key))
+    tm = t_create_model(name, maxdisp, **kwargs).reset_parameters(
+        torch.Generator().manual_seed(1))
+    state, opt = create_train_state(tm, device="cpu")
+    gen = torch.Generator().manual_seed(1)
+    batch = torch.rand(1, h, w, 7, generator=gen)
+    batch[..., 6] = batch[..., 6] * (maxdisp - 2) + 1
+    out = make_supervised_train_step(tm, opt)(state, batch, 1e-3,
+                                              chip_smoke.loss_weights(tm))
+    assert np.isfinite(out["loss"].item())
+    assert calls == expected
+    assert len(f128) == chip_smoke.TRAIN_F128_LAUNCHES.get(name, 0)
+
+
+def test_dispnetc_corr_d_matches_jax(rng, monkeypatch):
+    """DispNetC with ``corr_d`` = 21 (the JAX constructor field,
+    ``dispnet.py:112``): conv3a takes 21 + 64 channels, and the eval-mode
+    forward matches the JAX model's in float64 to 1e-9 (the JAX heads'
+    float32 cast read as float64, as in ``test_torch_train_zoo.py``)."""
+    h, w = 64, 128
+    imL, imR = rng.rand(1, h, w, 3), rng.rand(1, h, w, 3)
+    tm = t_create_model("dispnetcorr", 192, corr_d=21).reset_parameters(
+        torch.Generator().manual_seed(0))
+    assert tuple(tm.conv3a.Conv_0.kernel.shape) == (5, 5, 85, 256)
+    jm = j_create_model("dispnetcorr", maxdisparity=192, corr_d=21)
+    variables = _flax_variables(jm, tm, h, w)
+    monkeypatch.setattr(j_dispnet, "jnp", _NoFloat32())
+    with jax.enable_x64():
+        jv = jax.tree.map(lambda a: jnp.asarray(a, jnp.float64), variables)
+        apply = jax.jit(lambda v, a, b: jm.apply(v, a, b, train=False)[1])
+        ref = [np.asarray(d) for d in apply(jv, jnp.asarray(imL), jnp.asarray(imR))]
+    tm = t_create_model("dispnetcorr", 192, corr_d=21).double()
+    interop.load_flax_variables(tm, variables["params"])
+    with torch.no_grad():
+        _, outs = tm.eval()(torch.from_numpy(imL), torch.from_numpy(imR))
+    assert len(outs) == len(ref) == 7
+    for o, r in zip(outs, ref):
+        assert o.shape == r.shape and o.dtype == torch.float64
+        assert np.linalg.norm(o.numpy() - r) <= 1e-9 * np.linalg.norm(r)
 
 
 @pytest.mark.parametrize("name", ["gcnet", "dispnetcorr", "iresnet"])
