@@ -11,8 +11,9 @@
    forward and backward roles and the weight-gradient kernels E-G, and
    the serving of GCNet (A-D, the cost volume H), PSMNet-basic (A, B, H),
    DispNetC and iResNet (the correlation I) at the same size, the fused
-   stem's assembly J on PSMNet's serving and train-step tap maps, and F at
-   128 -> 128 on GCNet's train step (l31/l32, "train_gcnet").
+   stem's assembly J on PSMNet's serving and train-step tap maps, and
+   every kernel at every shape of the train steps of GCNet (F at
+   128 -> 128 for l31/l32 among them), PSMNet-basic, DispNetC and iResNet.
    Each shape's bf16 kernel and its f32 instantiation are held against
    the plain PyTorch version computed in float32 from the same bf16 inputs
    with TF32 off (J: from the same float32 tap maps, written in bf16 and
@@ -37,9 +38,11 @@
    batch 4, on one fixed batch for TRAIN_STEPS steps: every step's launch
    counts equal TRAIN_LAUNCHES, the loss falls, and the median step
    time, frames/s and peak memory are printed; then one profiled step.
-   The same for GCNet at batch 1 (``train_gcnet_bf16``, F's 128 -> 128
-   launches counted apart), then GCNet's gradient check as in 4 at the
-   size of 6 (``grad_gcnet_f32``).
+   The same for GCNet at batch 1 (``train_gcnet_bf16``); then GCNet with
+   ``remat`` (``train_gcnet_remat_bf16``: three steps, launches against
+   REMAT_LAUNCHES, the recomputation in bf16, the first step's loss and
+   gradients against the plain step's, a falling loss); then GCNet's
+   gradient check as in 4 at the size of 6 (``grad_gcnet_f32``).
 6. GCNet in float32 through the kernels against the plain path, both
    against float64, at 192x384 with maxdisparity 96 (``model_gcnet_f32``);
    iResNet likewise at 384x768, maxdisparity 192 (``model_iresnet_f32``).
@@ -48,7 +51,8 @@
    requests, each with the launch counts of SERVE_LAUNCHES; then one
    profiled request each.
 8. Training PSMNet-basic, DispNet, DispNetC and iResNet as in 5 at batch 4
-   for 4 steps each (``train_*_bf16``), unprofiled.
+   for 4 steps each (``train_*_bf16``), unprofiled.  Each path's counted
+   launches must equal the launches of its rows in 2.
 9. The script's command time, one ``{"kernels": [...]}`` line (launches
    and times on each kernel's first path, "primary": the train step for
    A-G and J, GCNet's request for H, DispNetC's for I; and per path), the card's
@@ -60,6 +64,7 @@ It exits non-zero at once when CUDA is not available.
 
 from __future__ import annotations
 
+import contextlib
 import copy
 import json
 import math
@@ -158,8 +163,11 @@ TRAIN_LAUNCHES = {
     "dispnetcorr": {"corr1d": 1},
     "iresnet": {"corr1d": 2},
 }
-# of F's launches per step, those at 128 -> 128 (GCNet's l31 and l32)
-TRAIN_F128_LAUNCHES = {"gcnet": 2}
+# GCNet with remat: the backward recomputes each 3-D stage's forward
+# kernels (B 10, C 3, D 1) and the volume inside the two stages that read
+# it, which the forward also builds twice (H 2 + 2); no gradient role changes
+REMAT_LAUNCHES = {"gcnet": {**TRAIN_LAUNCHES["gcnet"], "conv3d_k3": 30, "conv3d_k3s2": 7,
+                            "deconv3d_k3s2": 2, "cost_volume": 4}}
 # name -> (path, batch, steps, lr): PSMNet at the JAX bench's batch 4 and lr;
 # GCNet at its published batch 1, lr 1e-3; the others at batch 4 for fewer
 # steps, at the JAX CLI's default lr (dsmnet_tpu/cli.py:45)
@@ -170,6 +178,7 @@ TRAIN_RUNS = {"psmnet": ("train", TRAIN_BATCH, TRAIN_STEPS, TRAIN_LR),
               "dispnetcorr": ("train_dispnetc", 4, 4, 1e-4),
               "iresnet": ("train_iresnet", 4, 4, 1e-4)}
 
+SLOW_CALL_MS = 20.0
 
 T_START = time.perf_counter()
 
@@ -182,7 +191,16 @@ def time_ms(fn, samples: int = 21, reps: int = 10, warmup: int = 3) -> float:
     """Device time per call: ``reps`` calls captured in one CUDA graph after
     warm-up, the graph's replay timed with CUDA events, median over
     ``samples`` replays.  A replay issues no Python, so this is the card's
-    time for the work, not the rate at which the host launches it."""
+    time for the work, not the rate at which the host launches it.  A call
+    slower than SLOW_CALL_MS (a plain weight gradient over GCNet's full
+    volume takes ~0.4 s) is timed in 5 replays of one call."""
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    fn()
+    end.record()
+    end.synchronize()
+    if start.elapsed_time(end) > SLOW_CALL_MS:
+        samples, reps, warmup = 5, 1, 0
     side = torch.cuda.Stream()
     side.wait_stream(torch.cuda.current_stream())
     with torch.cuda.stream(side):
@@ -230,7 +248,10 @@ def kernel_specs():
     per path the (first operand shape, second operand shape, launches per
     call, extra arguments) of each shape it takes there: "serve" (PSMNet,
     per request), "train" (PSMNet's train step, per step), "serve_gcnet",
-    "serve_psmnet_basic", "serve_dispnetc", "serve_iresnet" (per request).
+    "serve_psmnet_basic", "serve_dispnetc", "serve_iresnet" (per request),
+    "train_gcnet", "train_psmnet_basic", "train_dispnetc", "train_iresnet"
+    (per step, at TRAIN_RUNS' batch).  Every shape a path launches has a
+    row, and main() holds the rows' launches to the path's counters.
     "primary" names the path whose launches and times head the kernel's
     entry in the ``{"kernels": ...}`` line.  A conv kernel (kind "conv")
     takes (x, kernel); a weight-gradient kernel (kind "dk") (x, cotangent);
@@ -241,12 +262,15 @@ def kernel_specs():
 
     D4, H2, W2, H4, W4 = MAXDISP // 4, H // 2, W // 2, H // 4, W // 4
     D2 = MAXDISP // 2
-    B = TRAIN_BATCH
+    # the batch of each train path
+    B, Bg, Bb, Bc, Bi = (TRAIN_RUNS[n][1] for n in ("psmnet", "gcnet", "psmnet_basic",
+                                                    "dispnetcorr", "iresnet"))
     vol32 = lambda n: (n, D4, H4, W4, 32)
     vol64 = lambda n: (n, D4 // 2, H4 // 2, W4 // 2, 64)
     vol64s = lambda n: (n, D4 // 4, H4 // 4, W4 // 4, 64)
-    # GCNet's volume (1, D2, H2, W2, 64) and its levels 1/2 .. 1/16
-    gc = lambda lvl, c: (1, D2 >> lvl, H2 >> lvl, W2 >> lvl, c)
+    # GCNet's volume (n, D2, H2, W2, 64) and its levels 1/2 .. 1/16
+    gc = lambda lvl, c, n=1: (n, D2 >> lvl, H2 >> lvl, W2 >> lvl, c)
+    gt = lambda lvl, c: gc(lvl, c, Bg)
     k3 = lambda c, co: (3, 3, 3, c, co)
 
     def lib_conv2d(x, k):
@@ -348,7 +372,9 @@ def kernel_specs():
                     "train": [((2 * B, H2, W2, 32), (3, 3, 32, 32), 16)],
                     "serve_gcnet": [((2, H2, W2, 32), (3, 3, 32, 32), 17)],
                     # PSMNet-basic runs its tower once per view
-                    "serve_psmnet_basic": [((1, H2, W2, 32), (3, 3, 32, 32), 16)]},
+                    "serve_psmnet_basic": [((1, H2, W2, 32), (3, 3, 32, 32), 16)],
+                    "train_gcnet": [((2 * Bg, H2, W2, 32), (3, 3, 32, 32), 34)],
+                    "train_psmnet_basic": [((Bb, H2, W2, 32), (3, 3, 32, 32), 32)]},
              edges=[((1, 10, 40, 32), (3, 3, 32, 32))]),
         dict(name="conv3d_k3", kind="conv", route="cuda", source="dsmnet_tpu_torch/csrc/conv3d_k3.cu",
              replaces="dsmnet_tpu/ops/conv3d_pallas.py:220", primary="train",
@@ -362,7 +388,16 @@ def kernel_specs():
                                     (gc(1, 64), k3(64, 64), 2), (gc(2, 64), k3(64, 64), 2),
                                     (gc(3, 64), k3(64, 64), 2), (gc(4, 128), k3(128, 128), 2)],
                     "serve_psmnet_basic": [((1, D4, H4, W4, 64), k3(64, 32), 1),
-                                           (vol32(1), k3(32, 32), 10)]},
+                                           (vol32(1), k3(32, 32), 10)],
+                    # forward, and dx with the flipped, channel-swapped kernel
+                    # (l19's and dres0_0's at 32 -> 64)
+                    "train_gcnet": [(gt(0, 64), k3(64, 32), 1), (gt(0, 32), k3(32, 32), 2),
+                                    (gt(0, 32), k3(32, 64), 1), (gt(1, 64), k3(64, 64), 4),
+                                    (gt(2, 64), k3(64, 64), 4), (gt(3, 64), k3(64, 64), 4),
+                                    (gt(4, 128), k3(128, 128), 4)],
+                    "train_psmnet_basic": [((Bb, D4, H4, W4, 64), k3(64, 32), 1),
+                                           (vol32(Bb), k3(32, 32), 20),
+                                           (vol32(Bb), k3(32, 64), 1)]},
              edges=[((1, 5, 10, 40, 32), k3(32, 32)), ((1, 5, 10, 40, 32), k3(32, 64)),
                     ((1, 5, 9, 20, 64), k3(64, 32)), ((1, 5, 9, 20, 64), k3(64, 64)),
                     ((1, 3, 5, 20, 128), k3(128, 128))]),
@@ -376,7 +411,10 @@ def kernel_specs():
                     # conv1 forward and the conv6 deconv's d(input) share a shape
                     "train": [(vol32(B), k3(32, 64), 6), (vol64(B), k3(64, 64), 3)],
                     "serve_gcnet": [(gc(0, 64), k3(64, 64), 1), (gc(1, 64), k3(64, 64), 1),
-                                    (gc(2, 64), k3(64, 64), 1)]},
+                                    (gc(2, 64), k3(64, 64), 1)],
+                    # l21/l24/l27 forward and l36's d(input)
+                    "train_gcnet": [(gt(0, 64), k3(64, 64), 1), (gt(1, 64), k3(64, 64), 1),
+                                    (gt(2, 64), k3(64, 64), 1), (gt(0, 32), k3(32, 64), 1)]},
              # C's bf16 walk: one output D-slice (D = 2), runs of 2 ending in a
              # ragged one (D = 10, 18 at 132 SMs), H = 2, batch 2, W/2 not a
              # multiple of the 32-column tile, C = 32 and 64
@@ -395,7 +433,8 @@ def kernel_specs():
              paths={"serve": [(vol64(1), k3(32, 64), 3)],
                     # conv6 forward and the conv1 stride-2 conv's dx share a shape
                     "train": [(vol64(B), k3(32, 64), 6)],
-                    "serve_gcnet": [(gc(1, 64), k3(32, 64), 1)]},
+                    "serve_gcnet": [(gc(1, 64), k3(32, 64), 1)],
+                    "train_gcnet": [(gt(1, 64), k3(32, 64), 1)]},
              edges=[((1, 3, 5, 20, 64), k3(32, 64))]),
         dict(name="conv2d_dk_k3", kind="dk", route="cuda",
              source="dsmnet_tpu_torch/csrc/conv2d_dk_k3.cu",
@@ -403,7 +442,9 @@ def kernel_specs():
              kernel=conv2d.conv2d_dk_k3, plain=conv2d.conv2d_dk_plain,
              library=lib_wgrad(1, 2), out=lambda x, g, *a: (3, 3, x[-1], g[-1]),
              flops=dk_flops(9),
-             paths={"train": [((2 * B, H2, W2, 32), (2 * B, H2, W2, 32), 8)]},
+             paths={"train": [((2 * B, H2, W2, 32), (2 * B, H2, W2, 32), 8)],
+                    "train_gcnet": [((2 * Bg, H2, W2, 32), (2 * Bg, H2, W2, 32), 17)],
+                    "train_psmnet_basic": [((Bb, H2, W2, 32), (Bb, H2, W2, 32), 16)]},
              edges=[((1, 10, 40, 32), (1, 10, 40, 32))]),
         dict(name="conv3d_dk_k3", kind="dk", route="cuda",
              source="dsmnet_tpu_torch/csrc/conv3d_dk_k3.cu",
@@ -413,9 +454,12 @@ def kernel_specs():
              flops=dk_flops(27),
              paths={"train": [(vol32(B), vol32(B), 6), (vol64(B), vol64(B), 3),
                               (vol64s(B), vol64s(B), 3)],
-                    # GCNet's l31/l32 (128 -> 128) at batch 1; its other
-                    # eight F launches per step are counted in train_gcnet_bf16
-                    "train_gcnet": [(gc(4, 128), gc(4, 128), 2)]},
+                    # l19, l20, l22 .. l29 and l31/l32 (128 -> 128)
+                    "train_gcnet": [(gt(0, 64), gt(0, 32), 1), (gt(0, 32), gt(0, 32), 1),
+                                    (gt(1, 64), gt(1, 64), 2), (gt(2, 64), gt(2, 64), 2),
+                                    (gt(3, 64), gt(3, 64), 2), (gt(4, 128), gt(4, 128), 2)],
+                    "train_psmnet_basic": [((Bb, D4, H4, W4, 64), vol32(Bb), 1),
+                                           (vol32(Bb), vol32(Bb), 10)]},
              edges=[((1, 5, 10, 40, 32), (1, 5, 10, 40, 32)),
                     ((1, 5, 10, 40, 32), (1, 5, 10, 40, 64)),
                     ((1, 5, 9, 20, 64), (1, 5, 9, 20, 32)),
@@ -433,7 +477,10 @@ def kernel_specs():
              library=lib_wgrad(2, 3), out=lambda x, g, *a: (3, 3, 3, x[-1], g[-1]),
              flops=dk_flops(27),
              # conv1's dK and, roles swapped, the conv6 deconv's dW share a shape
-             paths={"train": [(vol32(B), vol64(B), 6), (vol64(B), vol64s(B), 3)]},
+             paths={"train": [(vol32(B), vol64(B), 6), (vol64(B), vol64s(B), 3)],
+                    # l21/l24/l27's dK and, roles swapped, l36's dW
+                    "train_gcnet": [(gt(0, 64), gt(1, 64), 1), (gt(1, 64), gt(2, 64), 1),
+                                    (gt(2, 64), gt(3, 64), 1), (gt(0, 32), gt(1, 64), 1)]},
              # G's bf16 walk: D = 2, an odd D/2, H = 2, batch 2 with three
              # ragged 48-position segments and chunks that start inside a row
              # line (90 rows in 45 chunks at 132 SMs), C = 32 and 64
@@ -451,7 +498,9 @@ def kernel_specs():
              out=lambda x, y, D, mask_left: (x[0], D, x[1], x[2], 2 * x[3]),
              flops=lambda *a: 0,
              paths={"serve_gcnet": [((1, H2, W2, 32), (1, H2, W2, 32), 1, D2, False)],
-                    "serve_psmnet_basic": [((1, H4, W4, 32), (1, H4, W4, 32), 1, D4, True)]},
+                    "serve_psmnet_basic": [((1, H4, W4, 32), (1, H4, W4, 32), 1, D4, True)],
+                    "train_gcnet": [((Bg, H2, W2, 32), (Bg, H2, W2, 32), 1, D2, False)],
+                    "train_psmnet_basic": [((Bb, H4, W4, 32), (Bb, H4, W4, 32), 1, D4, True)]},
              # D >= W, odd H and W, batch 2, both masks
              edges=[((1, 5, 12, 32), (1, 5, 12, 32), 16, True),
                     ((1, 5, 12, 32), (1, 5, 12, 32), 16, False),
@@ -465,7 +514,10 @@ def kernel_specs():
                     # iResNet: conv2 at 1/4 (D = 81); the shared projection
                     # of conv1 at 1/2 (D = 41, stride 2)
                     "serve_iresnet": [((1, H4, W4, 128), (1, H4, W4, 128), 1, 81, 1),
-                                      ((1, H2, W2, 64), (1, H2, W2, 64), 1, 41, 2)]},
+                                      ((1, H2, W2, 64), (1, H2, W2, 64), 1, 41, 2)],
+                    "train_dispnetc": [((Bc, H4, W4, 128), (Bc, H4, W4, 128), 1, 41, 1)],
+                    "train_iresnet": [((Bi, H4, W4, 128), (Bi, H4, W4, 128), 1, 81, 1),
+                                      ((Bi, H2, W2, 64), (Bi, H2, W2, 64), 1, 41, 2)]},
              # W not a multiple of the 64-column tile, D >= W, stride 2
              edges=[((2, 5, 100, 128), (2, 5, 100, 128), 41, 1),
                     ((1, 3, 20, 64), (1, 3, 20, 64), 41, 1),
@@ -632,8 +684,17 @@ def staged_mb(name, a, sms):
     return new / 1e6, old / 1e6
 
 
+MEASURED = {}  # (kernel, a, b, args) -> its row, for a shape that several paths launch
+
+
 def check_kernel(spec, a_shape, b_shape, launches, path, dev, gen, *args):
-    """Errors of the bf16 and f32 kernels against the plain f32 reference, and timings."""
+    """Errors of the bf16 and f32 kernels against the plain f32 reference, and
+    timings; a shape already measured on another path reuses that row."""
+    key = (spec["name"], tuple(a_shape), tuple(b_shape), tuple(args))
+    if key in MEASURED:
+        row = dict(MEASURED[key], path=path, launches=launches)
+        emit({"kernel_check": row})
+        return row
     a, b = kernel_inputs(spec, a_shape, b_shape, dev, gen)
     out_shape = spec["out"](a_shape, b_shape, *args)
     errs = kernel_errors(spec, a, b, args)
@@ -650,20 +711,21 @@ def check_kernel(spec, a_shape, b_shape, launches, path, dev, gen, *args):
         plain_ms=time_ms(lambda: spec["plain"](a, b, *args)),
         library_ms=time_ms(spec["library"](a, b, *args)),
         bound_ms=max(t_flops, t_bytes), bound_by="operations" if t_flops >= t_bytes else "bytes",
-        gflop=flops / 1e9, mbytes=nbytes / 1e6,
+        gflop=flops / 1e9, mbytes=nbytes / 1e6, measured_on=path,
     )
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
     staged = staged_mb(spec["name"], a_shape, sms)
     if staged is not None:
         row["l2_to_shared_mb"], row["l2_to_shared_mb_k3_tiles"] = staged
+    MEASURED[key] = row
     emit({"kernel_check": row})
     return row
 
 
-def seeded_model(dev, name: str = "psmnet", maxdisp: int | None = None):
+def seeded_model(dev, name: str = "psmnet", maxdisp: int | None = None, **kwargs):
     from dsmnet_tpu_torch.models import create_model
 
-    return create_model(name, maxdisp or MAXDISP).reset_parameters(
+    return create_model(name, maxdisp or MAXDISP, **kwargs).reset_parameters(
         torch.Generator().manual_seed(0)).to(dev)
 
 
@@ -992,31 +1054,12 @@ def check_gradients(dev, name: str = "psmnet", h: int = H, w: int = W,
         raise RuntimeError(f"{name}: {len(bad)} parameter gradients outside tolerance: {bad}")
 
 
-def count_f128_launches(counter: list):
-    """Wrap kernel F's wrapper, which ``_Conv3dK3.backward`` looks up in its
-    module at each call, so that its 128 -> 128 launches are also counted
-    apart (``counter[0]``); returns a function that removes the wrap."""
-    from dsmnet_tpu_torch.ops import conv3d
-
-    orig = conv3d.conv3d_dk_k3
-
-    def counted(x, g):
-        dk = orig(x, g)  # launches F (a CUDA tensor launches or raises)
-        if x.shape[-1] == 128:
-            counter[0] += 1
-        return dk
-
-    conv3d.conv3d_dk_k3 = counted
-    return lambda: setattr(conv3d, "conv3d_dk_k3", orig)
-
-
 def run_training(dev, name: str = "psmnet") -> dict:
     """The supervised train step of ``name`` (TRAIN_RUNS: path, batch,
     steps, Adam's lr), bf16, at H x W and maxdisparity MAXDISP, on one
     fixed batch: every step's launches must equal
     TRAIN_LAUNCHES[name] and the loss must fall.  PSMNet and GCNet are also
-    profiled for one step.  Returns the launches per step that the path's
-    kernel_specs rows count (GCNet: F's 128 -> 128 launches alone)."""
+    profiled for one step.  Returns the launches of one step."""
     from dsmnet_tpu_torch.models.layers import compute_dtype
     from dsmnet_tpu_torch.ops import _build
     from dsmnet_tpu_torch.train import create_train_state, make_supervised_train_step
@@ -1027,45 +1070,139 @@ def run_training(dev, name: str = "psmnet") -> dict:
     batch = train_batch(batch_n, dev)
     weights = loss_weights(state.model)
     expected = TRAIN_LAUNCHES[name]
-    f128 = [0]
-    unwrap = count_f128_launches(f128)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    losses, step_ms, counts, f128_counts = [], [], [], []
-    try:
-        with compute_dtype(torch.bfloat16):
-            for _ in range(steps):
-                _build.reset_launches()
-                f128[0] = 0
-                t0 = time.perf_counter()
-                m = step(state, batch, lr, weights)
-                loss = m["loss"].item()  # synchronises: the step has completed
-                step_ms.append((time.perf_counter() - t0) * 1e3)
-                counts.append({k: v for k, v in _build.LAUNCHES.items() if v})
-                f128_counts.append(f128[0])
-                losses.append(loss)
-            metrics = {k: v.item() for k, v in m.items()}
-            peak = torch.cuda.max_memory_allocated() / 1e9
-            if name in ("psmnet", "gcnet"):
-                profile(f"{path}_profile", lambda: step(state, batch, lr, weights))
-    finally:
-        unwrap()
+    losses, step_ms, counts = [], [], []
+    with compute_dtype(torch.bfloat16):
+        for _ in range(steps):
+            _build.reset_launches()
+            t0 = time.perf_counter()
+            m = step(state, batch, lr, weights)
+            loss = m["loss"].item()  # synchronises: the step has completed
+            step_ms.append((time.perf_counter() - t0) * 1e3)
+            counts.append({k: v for k, v in _build.LAUNCHES.items() if v})
+            losses.append(loss)
+        metrics = {k: v.item() for k, v in m.items()}
+        peak = torch.cuda.max_memory_allocated() / 1e9
+        if name in ("psmnet", "gcnet"):
+            profile(f"{path}_profile", lambda: step(state, batch, lr, weights))
     med = statistics.median(step_ms[1:])  # the first step also warms the allocator
     emit({f"{path}_bf16": {
         "net": name, "batch": batch_n, "crop": [H, W], "maxdisparity": MAXDISP, "steps": steps,
         "lr": lr, "loss": losses, "last_metrics": metrics, "step_ms": step_ms,
         "median_step_ms": med, "frames_per_s": batch_n * 1e3 / med, "peak_mem_gb": peak,
-        "launches_per_step": counts[-1], "expected_launches_per_step": expected,
-        "f128_dk_launches_per_step": f128_counts[-1]}})
+        "launches_per_step": counts[-1], "expected_launches_per_step": expected}})
     if any(c != expected for c in counts):
         raise RuntimeError(f"{name} train-step launches {counts}, expected {expected} per step")
-    want_f128 = TRAIN_F128_LAUNCHES.get(name, 0)
-    if any(c != want_f128 for c in f128_counts):
-        raise RuntimeError(f"{name}: F's 128 -> 128 launches per step {f128_counts}, "
-                           f"expected {want_f128}")
     if not all(math.isfinite(v) for v in losses) or not losses[-1] < losses[0]:
         raise RuntimeError(f"{name}: the loss did not fall over {steps} steps: {losses}")
-    return {"conv3d_dk_k3": f128_counts[-1]} if name == "gcnet" else counts[-1]
+    return counts[-1]
+
+
+def check_remat(dev, name: str = "gcnet", steps: int = 3) -> None:
+    """``remat`` on the card (``train_<name>_remat_bf16``): from the same
+    weights and batch, one float32 step and one bf16 step of ``name``
+    without remat, then ``steps`` bf16 steps with it.  Every remat step
+    must launch REMAT_LAUNCHES[name] (the kernels' autograd Functions run
+    again in the recomputation); each 3-D stage's BN must see its conv's
+    bf16 output twice a step (the forward and the recomputation: every
+    stage is recomputed, in the forward's compute dtype); the first remat
+    loss must equal the bf16 step's; the first remat gradients must be as
+    close to the float32 step's as the bf16 step's are (``check_gradients``'
+    rule with the bf16 step in the plain path's place: remat changes only
+    the order in which the tower's feature gradients are summed, as the
+    volume is built and back-propagated once in each of the two recomputed
+    stages that read it, which moves the bf16 rounding of the tower's
+    gradients, by up to 5% on the card, but not their distance from
+    float32; a missing or doubled term misses by O(1)); and the loss must
+    fall over ``steps``."""
+    from dsmnet_tpu_torch.models.layers import ConvBN, DeconvBN, compute_dtype
+    from dsmnet_tpu_torch.ops import _build
+    from dsmnet_tpu_torch.train import create_train_state, make_supervised_train_step
+
+    path, batch_n, _, lr = TRAIN_RUNS[name]
+    batch = train_batch(batch_n, dev)
+    runs = {}
+    for run, remat, dtype in (("f32", False, None), ("bf16", False, torch.bfloat16),
+                              ("remat", True, torch.bfloat16)):
+        state, opt = create_train_state(seeded_model(dev, name, remat=remat), device=dev)
+        step = make_supervised_train_step(state.model, opt)
+        weights = loss_weights(state.model)
+        dtypes, stages = [], []
+        if remat:
+            # a pre-hook: the recomputation stops once it has made what the
+            # backward reads, before a stage's own forward hook would run
+            stages = [m.BatchNorm_0 for m in state.model.modules()
+                      if isinstance(m, (ConvBN, DeconvBN)) and m.dims == 3
+                      and m.BatchNorm_0 is not None]
+            for m in stages:
+                m.register_forward_pre_hook(lambda mod, a: dtypes.append(a[0].dtype))
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        r = dict(loss=[], launches=[], step_ms=[], dtypes=dtypes, stages=len(stages))
+        with compute_dtype(dtype) if dtype else contextlib.nullcontext():
+            for i in range(steps if remat else 1):
+                _build.reset_launches()
+                t0 = time.perf_counter()
+                r["loss"].append(step(state, batch, lr, weights)["loss"].item())
+                r["step_ms"].append((time.perf_counter() - t0) * 1e3)
+                r["launches"].append({k: v for k, v in _build.LAUNCHES.items() if v})
+                if i == 0:
+                    r["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+                    r["grads"] = {n: p.grad.double() for n, p in state.model.named_parameters()}
+        runs[run] = r
+        zero = zero_gradient_params(state.model)
+        del state, opt, step
+    g32, g16, rm = runs["f32"]["grads"], runs["bf16"]["grads"], runs["remat"]
+    # the norm each error is measured against, as in check_gradients
+    scale = {n: (g32[n.replace(".bias", ".kernel")] if n in zero else g32[n]).norm()
+             for n in g32}
+    rel = lambda a, b, n: ((a[n] - b[n]).norm() / scale[n].clamp(min=1e-300)).item()
+    # per parameter: (remat vs f32, bf16 vs f32, remat vs bf16)
+    rows = {n: (rel(rm["grads"], g32, n), rel(g16, g32, n), rel(rm["grads"], g16, n))
+            for n in g32}
+    floor = GRAD_F32_FLOOR_SHARE * statistics.median(r[1] for r in rows.values())
+    limit = lambda r: GRAD_F32_FACTOR * r[1] + floor
+    bad = {n: r for n, r in rows.items() if not r[0] <= limit(r)}
+    expected = REMAT_LAUNCHES[name]
+    dtypes, n_stages = rm["dtypes"], rm["stages"]
+    n_bf16 = sum(d == torch.bfloat16 for d in dtypes)
+    emit({f"{path}_remat_bf16": {
+        "net": name, "batch": batch_n, "crop": [H, W], "maxdisparity": MAXDISP, "lr": lr,
+        "loss": rm["loss"], "first_loss": {k: runs[k]["loss"][0] for k in runs},
+        "step_ms": rm["step_ms"], "first_step_ms": {k: runs[k]["step_ms"][0] for k in runs},
+        "peak_mem_gb_first_step": {k: runs[k]["peak_gb"] for k in runs},
+        "max_rel_err_remat": max(r[0] for r in rows.values()),
+        "max_rel_err_bf16": max(r[1] for r in rows.values()),
+        "median_rel_err_remat": statistics.median(r[0] for r in rows.values()),
+        "median_rel_err_bf16": statistics.median(r[1] for r in rows.values()),
+        "max_rel_diff_remat_vs_bf16": max(r[2] for r in rows.values()),
+        "params_remat_equal_bf16": sum(r[2] == 0 for r in rows.values()), "params": len(rows),
+        # the parameters nearest their limit: (remat, bf16, remat vs bf16, remat / limit)
+        "tightest": [(n, (*r, r[0] / max(limit(r), 1e-300))) for n, r in
+                     sorted(rows.items(), key=lambda kv: -kv[1][0] / max(limit(kv[1]), 1e-300))
+                     [:5]],
+        "tolerance": f"per parameter against the float32 step, |g - g32| / |g32| (0 in exact "
+                     f"arithmetic: / |g32 of its layer's kernel|): remat <= "
+                     f"{GRAD_F32_FACTOR} * bf16 + {GRAD_F32_FLOOR_SHARE} * median(bf16) = "
+                     f"{floor:.3g}; first remat loss equal to the bf16 step's",
+        "stages": n_stages, "stage_conv_outputs": len(dtypes), "stage_conv_outputs_bf16": n_bf16,
+        "outside_tol": bad,
+        "launches_per_step": rm["launches"], "expected_launches_per_step": expected}})
+    if any(c != expected for c in rm["launches"]):
+        raise RuntimeError(f"{name} remat launches {rm['launches']}, expected {expected} per step")
+    if n_bf16 != len(dtypes) or len(dtypes) != 2 * n_stages * steps or not n_stages:
+        raise RuntimeError(f"{name} remat: {n_bf16} bf16 conv outputs of {len(dtypes)} seen by "
+                           f"the BNs of {n_stages} 3-D stages in {steps} steps (forward and "
+                           "recomputation: 2 a step each)")
+    if rm["loss"][0] != runs["bf16"]["loss"][0]:
+        raise RuntimeError(f"{name} remat: first loss {rm['loss'][0]}, bf16 step "
+                           f"{runs['bf16']['loss'][0]}")
+    if bad:
+        raise RuntimeError(f"{name} remat: {len(bad)} gradients outside tolerance: {bad}")
+    if not all(math.isfinite(v) for v in rm["loss"]) or not rm["loss"][-1] < rm["loss"][0]:
+        raise RuntimeError(f"{name} remat: the loss did not fall over {steps} steps: "
+                           f"{rm['loss']}")
 
 
 def main() -> int:
@@ -1105,13 +1242,14 @@ def main() -> int:
     check_gradients(dev)
     launches["train"] = run_training(dev)
     launches["train_gcnet"] = run_training(dev, "gcnet")
+    check_remat(dev)
     check_gradients(dev, "gcnet", GCNET_F32_H, GCNET_F32_W, GCNET_F32_MAXDISP, "grad_gcnet_f32")
     check_model_f32(dev, "gcnet", GCNET_F32_H, GCNET_F32_W, GCNET_F32_MAXDISP)
     check_model_f32(dev, "iresnet", H, W, MAXDISP)
     for name, path in SERVE_PATHS.items():
         launches[path] = serve_model(name, dev, N_REQUESTS)
     for name in ("psmnet_basic", "dispnet", "dispnetcorr", "iresnet"):
-        run_training(dev, name)
+        launches[TRAIN_RUNS[name][0]] = run_training(dev, name)
     # the shapes' launches in kernel_specs must add up to what each path launched
     for s in specs:
         for path in launches:

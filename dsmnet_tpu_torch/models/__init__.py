@@ -28,7 +28,7 @@ def create_model(name: str, maxdisparity: int = 192, **kwargs):
     """Name -> nn.Module (parameters uninitialized until ``reset_parameters``
     or a weight load); ``kwargs`` go to the model's constructor, as in JAX
     (``dsmnet_tpu/models/__init__.py:30``): ``remat`` (PSMNet, GCNet),
-    ``fused_stem`` (PSMNet), ``corr_d`` (DispNetC), ``iterations`` (iResNet)."""
+    ``iterations`` (iResNet)."""
     if name not in MODELS:
         raise ValueError(f"unknown model '{name}'; supported: {sorted(MODELS)}")
     return MODELS[name](maxdisparity=maxdisparity, **kwargs)

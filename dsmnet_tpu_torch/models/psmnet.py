@@ -23,7 +23,6 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from ..ops.conv3d import deconv3d_k3s2
-from ..ops.cost_volume import concat_cost_volume
 from ..ops.fused_costvol import cost_volume_conv3x3
 from ..ops.regression import trilinear_soft_argmin
 from ..ops.resize import resize_bilinear
@@ -159,23 +158,18 @@ class _Classifier(nn.Module):
 
 
 class PSMNet(nn.Module):
-    """Stacked-hourglass PSMNet (reference stackhourglass.py:64-168).
-
-    ``fused_stem=False`` builds the masked concat volume (kernel H) and runs
-    ``dres0_0`` as a plain ConvBN over it (JAX ``psmnet.py:246-250``; the
-    parameter tree then has ``dres0_0.Conv_0.kernel``); ``remat``
-    recomputes each hourglass in the backward (JAX ``psmnet.py:228``)."""
+    """Stacked-hourglass PSMNet (reference stackhourglass.py:64-168);
+    ``remat`` recomputes each hourglass in the backward (JAX
+    ``psmnet.py:228``)."""
 
     count_levels = 1
 
-    def __init__(self, maxdisparity: int = 192, fused_stem: bool = True, remat: bool = False):
+    def __init__(self, maxdisparity: int = 192, remat: bool = False):
         super().__init__()
         self.maxdisparity = maxdisparity
-        self.fused_stem = fused_stem
         self.remat = remat
         self.feature_extraction = _FeatureExtraction()
-        self.dres0_0 = _FusedStem(64, 32, maxdisparity // 4) if fused_stem \
-            else ConvBN(64, 32, 3, 1, dims=3, bn=True, relu=True)
+        self.dres0_0 = _FusedStem(64, 32, maxdisparity // 4)
         self.dres0_1 = ConvBN(32, 32, 3, 1, dims=3, bn=True, relu=True)
         self.dres1_0 = ConvBN(32, 32, 3, 1, dims=3, bn=True, relu=True)
         self.dres1_1 = ConvBN(32, 32, 3, 1, dims=3, bn=True, relu=False)
@@ -195,11 +189,7 @@ class PSMNet(nn.Module):
             raise ValueError(f"image shapes differ: {tuple(imL.shape)} vs {tuple(imR.shape)}")
         fL, fR = siamese(self.feature_extraction, imL, imR)
 
-        if self.fused_stem:
-            cost0 = self.dres0_0(fL, fR)
-        else:
-            cost0 = self.dres0_0(concat_cost_volume(fL, fR, self.maxdisparity // 4,
-                                                    mask_left=True))
+        cost0 = self.dres0_0(fL, fR)
         cost0 = self.dres0_1(cost0)
         d1 = self.dres1_1(self.dres1_0(cost0))
         cost0 = crop_add(d1, cost0)

@@ -39,6 +39,7 @@ import numpy as np
 import pytest
 import torch
 
+import chip_smoke
 from dsmnet_tpu.models import create_model as j_create_model
 from dsmnet_tpu.models import dispnet as j_dispnet
 from dsmnet_tpu.models import iresnet as j_iresnet
@@ -51,7 +52,6 @@ from dsmnet_tpu.train import steps as j_steps
 from dsmnet_tpu_torch import interop
 from dsmnet_tpu_torch.losses import parse_loss_name
 from dsmnet_tpu_torch.models import create_model as t_create_model
-from dsmnet_tpu_torch.models.layers import ConvBN, DeconvBN
 from dsmnet_tpu_torch.train import create_train_state, make_supervised_train_step
 from test_torch_train import _flat, _recording_adam, _relerr, _seeded_flax_variables
 
@@ -77,18 +77,6 @@ class _NoFloat32:
 
 
 _F32_CASTS = (j_softargmin, j_regression, j_conv3d, j_warp, j_dispnet, j_iresnet)
-
-
-def zero_in_exact_arithmetic(model) -> set[str]:
-    """Parameters whose gradient is 0 in exact arithmetic: the bias of a
-    conv or deconv followed by a BN, and GCNet's l37 bias."""
-    names = {f"{m}.{k}.bias" for m, mod in model.named_modules()
-             if isinstance(mod, (ConvBN, DeconvBN)) and mod.BatchNorm_0 is not None
-             for k in ("Conv_0", "ConvTranspose_0") if getattr(mod, k, None) is not None
-             and getattr(mod, k).bias is not None}
-    if type(model).__name__ == "GCNet":
-        names.add("layer3d.l37.ConvTranspose_0.bias")
-    return names
 
 
 def check_train_step_f64(name, maxdisp, n, h, w, rng, monkeypatch, **kwargs):
@@ -127,7 +115,7 @@ def check_train_step_f64(name, maxdisp, n, h, w, rng, monkeypatch, **kwargs):
         np.testing.assert_allclose(out[k].item(), ref[k], rtol=REL, err_msg=k)
     named = dict(tm.named_parameters())
     assert set(named) == set(ref_grads) == set(params0)
-    zero = zero_in_exact_arithmetic(tm)
+    zero = chip_smoke.zero_gradient_params(tm)
     assert zero <= set(named)
     for p, t in named.items():
         g, new_p = t.grad.numpy(), t.detach().numpy()
@@ -153,7 +141,7 @@ def test_gcnet_train_step_matches_jax_f64(rng, monkeypatch):
     tower pass, the 3-D hourglass and its deconvs, the l31/l32 128 -> 128
     convs whose dK kernel F computes on the card."""
     tm = check_train_step_f64("gcnet", 24, 2, 64, 96, rng, monkeypatch)
-    assert len(zero_in_exact_arithmetic(tm)) == 20  # conv1, l19..l36, l37
+    assert len(chip_smoke.zero_gradient_params(tm)) == 20  # conv1, l19..l36, l37
 
 
 def test_dispnet_train_step_matches_jax_f64(rng, monkeypatch):

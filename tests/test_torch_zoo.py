@@ -19,8 +19,9 @@ those on the card):
   * which ops reach which kernel wrapper, as the launch counters show it
     on the card, by shims around the wrappers, in a forward and in a train
     step (the tables ``chip_smoke.py`` holds the card to);
-  * DispNetC with another ``corr_d`` against JAX, float64.
 """
+
+import collections
 
 import flax
 import jax
@@ -31,7 +32,6 @@ import torch
 
 import chip_smoke
 from dsmnet_tpu.models import create_model as j_create_model
-from dsmnet_tpu.models import dispnet as j_dispnet
 from dsmnet_tpu.ops import corr as j_corr
 from dsmnet_tpu.ops import cost_volume as j_cost_volume
 from dsmnet_tpu.ops import softargmin as j_softargmin
@@ -45,7 +45,6 @@ from dsmnet_tpu_torch.ops import fused_costvol as t_fused
 from dsmnet_tpu_torch.ops.softargmin import soft_argmin
 from dsmnet_tpu_torch.serve import Predictor
 from dsmnet_tpu_torch.train import create_train_state, make_supervised_train_step
-from test_torch_train_zoo import _NoFloat32
 
 
 @pytest.fixture(autouse=True)
@@ -260,16 +259,12 @@ def test_model_routes_ops_to_kernel_wrappers(name, monkeypatch):
 
 
 # name -> (maxdisparity, H, W, create_model kwargs, wrapper calls of one
-# train step): chip_smoke.py's TRAIN_LAUNCHES, which its train phases hold
-# every step to on the card; under GCNet's remat the backward recomputes
-# the 3-D stages' forward kernels (B 10, C 3, D 1) and the volume inside the
-# two stages that read it, which the forward also builds twice (H 2 + 2)
+# train step): chip_smoke.py's TRAIN_LAUNCHES (REMAT_LAUNCHES with remat),
+# which its train phases hold every step to on the card
 TRAIN_ROUTES = {
     "psmnet": (32, 256, 256, {}, chip_smoke.TRAIN_LAUNCHES["psmnet"]),
     "gcnet": (32, 64, 128, {}, chip_smoke.TRAIN_LAUNCHES["gcnet"]),
-    "gcnet_remat": (32, 64, 128, {"remat": True},
-                    {**chip_smoke.TRAIN_LAUNCHES["gcnet"], "conv3d_k3": 30, "conv3d_k3s2": 7,
-                     "deconv3d_k3s2": 2, "cost_volume": 4}),
+    "gcnet_remat": (32, 64, 128, {"remat": True}, chip_smoke.REMAT_LAUNCHES["gcnet"]),
     "psmnet_basic": (16, 256, 256, {}, chip_smoke.TRAIN_LAUNCHES["psmnet_basic"]),
     "dispnet": (192, 64, 128, {}, chip_smoke.TRAIN_LAUNCHES["dispnet"]),
     "dispnetcorr": (192, 64, 128, {}, chip_smoke.TRAIN_LAUNCHES["dispnetcorr"]),
@@ -280,17 +275,21 @@ TRAIN_ROUTES = {
 @pytest.mark.parametrize("case", sorted(TRAIN_ROUTES))
 def test_train_step_routes_ops_to_kernel_wrappers(case, monkeypatch):
     """One supervised step's forward and backward reach each wrapper as
-    often as the card's launch counters must show it; GCNet's l31/l32 hand
-    their dK to kernel F (two of its calls at 128 -> 128)."""
+    often as the card's launch counters must show it, and at the shapes of
+    chip_smoke.py's rows for the model's train path at this size and batch
+    (GCNet's l31/l32 hand their dK to kernel F at 128 -> 128): every shape
+    the step launches is one that the card's check holds against its plain
+    version.  Remat launches the same shapes."""
     maxdisp, h, w, kwargs, expected = TRAIN_ROUTES[case]
     name = case.split("_remat")[0]
-    calls, f128 = {}, []
+    calls, shapes = {}, {}
 
     def shim(fn, key):
         def counted(*args, **kw):
             calls[key] = calls.get(key, 0) + 1
-            if key == "conv3d_dk_k3" and args[0].shape[-1] == 128:
-                f128.append(tuple(args[0].shape))
+            sig = tuple(tuple(a.shape) if torch.is_tensor(a) else a for a in args
+                        if not isinstance(a, torch.dtype))
+            shapes.setdefault(key, collections.Counter())[sig] += 1
             return fn(*args, **kw)
         return counted
 
@@ -306,34 +305,19 @@ def test_train_step_routes_ops_to_kernel_wrappers(case, monkeypatch):
                                               chip_smoke.loss_weights(tm))
     assert np.isfinite(out["loss"].item())
     assert calls == expected
-    assert len(f128) == chip_smoke.TRAIN_F128_LAUNCHES.get(name, 0)
 
-
-def test_dispnetc_corr_d_matches_jax(rng, monkeypatch):
-    """DispNetC with ``corr_d`` = 21 (the JAX constructor field,
-    ``dispnet.py:112``): conv3a takes 21 + 64 channels, and the eval-mode
-    forward matches the JAX model's in float64 to 1e-9 (the JAX heads'
-    float32 cast read as float64, as in ``test_torch_train_zoo.py``)."""
-    h, w = 64, 128
-    imL, imR = rng.rand(1, h, w, 3), rng.rand(1, h, w, 3)
-    tm = t_create_model("dispnetcorr", 192, corr_d=21).reset_parameters(
-        torch.Generator().manual_seed(0))
-    assert tuple(tm.conv3a.Conv_0.kernel.shape) == (5, 5, 85, 256)
-    jm = j_create_model("dispnetcorr", maxdisparity=192, corr_d=21)
-    variables = _flax_variables(jm, tm, h, w)
-    monkeypatch.setattr(j_dispnet, "jnp", _NoFloat32())
-    with jax.enable_x64():
-        jv = jax.tree.map(lambda a: jnp.asarray(a, jnp.float64), variables)
-        apply = jax.jit(lambda v, a, b: jm.apply(v, a, b, train=False)[1])
-        ref = [np.asarray(d) for d in apply(jv, jnp.asarray(imL), jnp.asarray(imR))]
-    tm = t_create_model("dispnetcorr", 192, corr_d=21).double()
-    interop.load_flax_variables(tm, variables["params"])
-    with torch.no_grad():
-        _, outs = tm.eval()(torch.from_numpy(imL), torch.from_numpy(imR))
-    assert len(outs) == len(ref) == 7
-    for o, r in zip(outs, ref):
-        assert o.shape == r.shape and o.dtype == torch.float64
-        assert np.linalg.norm(o.numpy() - r) <= 1e-9 * np.linalg.norm(r)
+    for attr, v in (("H", h), ("W", w), ("MAXDISP", maxdisp), ("TRAIN_RUNS", {
+            k: (path, 1, steps, lr) for k, (path, _, steps, lr) in chip_smoke.TRAIN_RUNS.items()})):
+        monkeypatch.setattr(chip_smoke, attr, v)
+    path = chip_smoke.TRAIN_RUNS[name][0]
+    rows = {}
+    for spec in chip_smoke.kernel_specs():
+        for a, b, n, *args in spec["paths"].get(path, []):
+            rows.setdefault(spec["name"], collections.Counter())[(a, b, *args)] += n
+    if kwargs:
+        assert {k: set(c) for k, c in shapes.items()} == {k: set(c) for k, c in rows.items()}
+    else:
+        assert shapes == rows
 
 
 @pytest.mark.parametrize("name", ["gcnet", "dispnetcorr", "iresnet"])
