@@ -21,8 +21,12 @@
    copy, the plain version's bits.  The device time (CUDA graph replays timed with
    CUDA events) of the kernel, the plain version and one PyTorch call
    (cuDNN for the convolutions) beside the card's bound for the work;
-   also the kernel's eager wall time per call.  Small ragged-edge shapes
-   are checked, not timed.  For the stem also the whole op (tap maps + J)
+   also the kernel's eager wall time per call; for C, D, F and G the MB
+   their bf16 designs move from L2 into shared memory per launch, beside
+   the count for the earlier tiles (``l2_to_shared_mb``,
+   ``l2_to_shared_mb_earlier_tiles``).  Small ragged-edge shapes (chunks
+   and runs that end ragged, D = 1 and 2, odd H, W off every tile) are
+   checked, not timed.  For the stem also the whole op (tap maps + J)
    against the op on the plain assembly, and kernel H's volume build
    beside cuDNN's conv over that volume, which the fused stem replaces.
 3. Serving: full-width PSMNet with seeded weights and BN statistics
@@ -435,7 +439,11 @@ def kernel_specs():
                     "train": [(vol64(B), k3(32, 64), 6)],
                     "serve_gcnet": [(gc(1, 64), k3(32, 64), 1)],
                     "train_gcnet": [(gt(1, 64), k3(32, 64), 1)]},
-             edges=[((1, 3, 5, 20, 64), k3(32, 64))]),
+             # D's bf16 walk: odd H, D = 1, D = 2 with W = 40 (a 32-column
+             # tile and a ragged one), runs of 6 ending in a ragged one
+             # (D = 11 at 132 SMs), batch 2
+             edges=[((1, 3, 5, 20, 64), k3(32, 64)), ((1, 1, 5, 20, 64), k3(32, 64)),
+                    ((1, 2, 6, 40, 64), k3(32, 64)), ((2, 11, 32, 96, 64), k3(32, 64))]),
         dict(name="conv2d_dk_k3", kind="dk", route="cuda",
              source="dsmnet_tpu_torch/csrc/conv2d_dk_k3.cu",
              replaces="dsmnet_tpu/ops/conv2d_pallas.py:280", primary="train",
@@ -464,9 +472,17 @@ def kernel_specs():
                     ((1, 5, 10, 40, 32), (1, 5, 10, 40, 64)),
                     ((1, 5, 9, 20, 64), (1, 5, 9, 20, 32)),
                     ((1, 5, 9, 20, 64), (1, 5, 9, 20, 64)),
+                    # F's bf16 walk: chunks of 3 rows that start inside an oh
+                    # walk and W = 100 (a 96-position segment and a ragged
+                    # one) at 32 -> 32; D = 1 with odd H and W = 50 at 64 ->
+                    # 32; D = 2, batch 2, W = 100 at 64 -> 64; W = 70 at 32 -> 64
+                    ((1, 4, 30, 100, 32), (1, 4, 30, 100, 32)),
+                    ((1, 1, 7, 50, 64), (1, 1, 7, 50, 32)),
+                    ((2, 2, 9, 100, 64), (2, 2, 9, 100, 64)),
+                    ((1, 3, 11, 70, 32), (1, 3, 11, 70, 64)),
                     # 128 -> 128: W = 8 (one segment, 24 zero-filled
                     # columns), D = 2, W = 24 with odd H, batch 2 with a
-                    # ragged second segment (W = 40)
+                    # ragged second segment (W = 40) and chunks of 10 rows
                     ((1, 2, 3, 8, 128), (1, 2, 3, 8, 128)),
                     ((1, 2, 5, 24, 128), (1, 2, 5, 24, 128)),
                     ((2, 3, 4, 40, 128), (2, 3, 4, 40, 128))]),
@@ -643,16 +659,18 @@ def check_edges(spec, dev, gen):
     emit({"kernel_edges": {"kernel": spec["name"], "cases": rows}})
 
 
-def staged_mb(name, a, sms):
-    """MB per launch that kernels C and G move from L2 into shared memory at
-    x shape ``a`` (input rows and columns with their halo, kernel columns,
-    cotangent rows; each copy counted once per block that makes it), in
-    bf16 for the s2_ring.cuh design and for the conv_k3.cuh / dk_k3.cuh
-    tiles (their f32 instantiations' design); None for the other kernels."""
+def staged_mb(name, a, b, sms):
+    """MB per launch that kernels C, D, F and G move from L2 into shared
+    memory at operand shapes ``a`` (x) and ``b`` (the kernel or the
+    cotangent): input rows and columns with their halo, kernel columns,
+    cotangent rows, each copy counted once per block that makes it; in bf16
+    for the s2_ring.cuh / s1_dk_ring.cuh / deconv ring designs and for the
+    earlier tiles (conv_k3.cuh, dk_k3.cuh, D's output rows: their f32
+    instantiations' design); None for the other kernels."""
     from dsmnet_tpu_torch.ops import conv3d
 
     cdiv = lambda p, q: -(-p // q)
-    if name not in ("conv3d_k3s2", "conv3d_dk_k3s2"):
+    if name not in ("conv3d_k3s2", "conv3d_dk_k3s2", "conv3d_dk_k3", "deconv3d_k3s2"):
         return None
     n, d, h, w, c = a
     if name == "conv3d_k3s2":
@@ -670,18 +688,61 @@ def staged_mb(name, a, sms):
         old = cdiv(wo, tm) * cdiv(ho, rh) * n * do * (
             3 * (2 * rh + 1) * (2 * tm + 1) * c + 27 * c * 64) * 2
         return new / 1e6, old / 1e6
-    dg, tw = d // 2, conv3d.S2_DK_SEGMENT
-    rows = conv3d.s2_dk_rows(n, d, h, w)
-    chunks = conv3d.s2_dk_chunks(rows, c, sms)
-    # 3 kd blocks per row: the g segment, two x rows of both parity planes
-    # of tw + 1 pairs (none for slice -1, kd = 0 at od = 0), and two halo
-    # rows per chunk
-    x_rows = 3 * rows - rows // dg
-    new = (3 * rows * tw * 64 + (x_rows + 3 * chunks) * 2 * 2 * (tw + 1) * c) * 2
-    # dk_k3.cuh: 9 tap groups per row segment, its g and one x row of
-    # 2 tw + 1 columns each
-    old = 9 * rows * (tw * 64 + (2 * tw + 1) * c) * 2
-    return new / 1e6, old / 1e6
+    if name == "conv3d_dk_k3s2":
+        dg, tw = d // 2, conv3d.S2_DK_SEGMENT
+        rows = conv3d.s2_dk_rows(n, d, h, w)
+        chunks = conv3d.s2_dk_chunks(rows, c, sms)
+        # 3 kd blocks per row: the g segment, two x rows of both parity planes
+        # of tw + 1 pairs (none for slice -1, kd = 0 at od = 0), and two halo
+        # rows per chunk
+        x_rows = 3 * rows - rows // dg
+        new = (3 * rows * tw * 64 + (x_rows + 3 * chunks) * 2 * 2 * (tw + 1) * c) * 2
+        # dk_k3.cuh: 9 tap groups per row segment, its g and one x row of
+        # 2 tw + 1 columns each
+        old = 9 * rows * (tw * 64 + (2 * tw + 1) * c) * 2
+        return new / 1e6, old / 1e6
+    if name == "conv3d_dk_k3":
+        co = b[-1]
+        tw, cob, _ = conv3d.DK_K3_TILES[c, co]
+        nseg = cdiv(w, tw)
+        rows = conv3d.dk_k3_rows(n, d, h, w, c, co)
+        x_b, g_b = (tw + 2) * c * 2, tw * cob * 2
+        # per Co tile and kd block: each row of a slice in the volume (not
+        # kd = 0 at od = 0 nor kd = 2 at od = D - 1) brings its g segment and
+        # x row oh + 1; each such line's first row also x row 0; a chunk's
+        # first row also x rows oh and oh - 1 (when oh > 0)
+        lines = n * nseg * (3 * d - 2)
+        firsts = 0
+        for lo, _ in _f_ranges(rows, conv3d.dk_k3_chunks(rows, c, co, sms)):
+            line, oh = divmod(lo, h)
+            od = line // nseg % d
+            if oh:
+                firsts += 2 * (1 + (od > 0) + (od < d - 1))
+        new = co // cob * (lines * h * (x_b + g_b) + (lines + firsts) * x_b)
+        # dk_k3.cuh: 9 (kd, kh) tap groups x Co tiles per row segment, its g
+        # segment and one x row of tw + 2 columns each
+        tw, cob = (32, 32) if c == 128 else (64 if c == 32 else 48, co)
+        old = 9 * co // cob * n * d * h * cdiv(w, tw) * (tw * cob + (tw + 2) * c) * 2
+        return new / 1e6, old / 1e6
+    if name == "deconv3d_k3s2":
+        rh, tm = conv3d.DECONV_TILE
+        runs = conv3d.deconv_runs(d, conv3d.deconv_run(n, d, h, w, sms))
+        cols = n * cdiv(h, rh) * cdiv(w, tm)
+        # per block: its slices u0 .. min(u1, D - 1), rh + 1 rows of tm + 1
+        # columns each, and the resident kernel (27 x 32 x 64)
+        new = cols * sum((min(e + 1, d) - b) * (rh + 1) * (tm + 1) * 64 + 27 * 32 * 64
+                         for b, e in runs) * 2
+        # one output row per block, 64 input columns: its <= 2 x 2 input
+        # rows of 65 columns and a 3 x 32 x 64 kernel slice per row pair
+        # (2.25 pairs per output row on average)
+        old = n * 2 * d * 2 * h * cdiv(w, 64) * 2.25 * (65 * 64 + 3 * 32 * 64) * 2
+        return new / 1e6, old / 1e6
+
+
+def _f_ranges(rows, chunks):
+    """The rows [lo, hi) that each chunk of kernel F or G sums."""
+    per = -(-rows // chunks)
+    return [(k * per, min(rows, (k + 1) * per)) for k in range(chunks)]
 
 
 MEASURED = {}  # (kernel, a, b, args) -> its row, for a shape that several paths launch
@@ -714,9 +775,9 @@ def check_kernel(spec, a_shape, b_shape, launches, path, dev, gen, *args):
         gflop=flops / 1e9, mbytes=nbytes / 1e6, measured_on=path,
     )
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
-    staged = staged_mb(spec["name"], a_shape, sms)
+    staged = staged_mb(spec["name"], a_shape, b_shape, sms)
     if staged is not None:
-        row["l2_to_shared_mb"], row["l2_to_shared_mb_k3_tiles"] = staged
+        row["l2_to_shared_mb"], row["l2_to_shared_mb_earlier_tiles"] = staged
     MEASURED[key] = row
     emit({"kernel_check": row})
     return row
@@ -951,7 +1012,8 @@ def profile(tag: str, fn, top: int = 25) -> None:
     device_ms = sum(ms for _, ms, _ in kernels)
     ported_ms = sum(ms for name, ms, _ in kernels if any(
         s in name for s in ("conv_k3_kernel", "s2_fwd_kernel", "deconv_k3s2_kernel",
-                            "dk_k3_kernel", "s2_dk_kernel", "dk_reduce",
+                            "deconv_ring_kernel", "dk_k3_kernel", "s1_dk_kernel",
+                            "s2_dk_kernel", "dk_reduce",
                             "cost_volume_kernel", "corr1d_kernel", "fused_costvol_kernel")))
     emit({tag: {"wall_ms": wall_ms, "device_ms": device_ms,
                 "device_busy_share": device_ms / wall_ms, "ported_kernels_ms": ported_ms,
@@ -1205,6 +1267,20 @@ def check_remat(dev, name: str = "gcnet", steps: int = 3) -> None:
                            f"{rm['loss']}")
 
 
+def ptxas_report(log: str) -> dict:
+    """Registers and spills per kernel entry from nvcc's ``-Xptxas=-v`` log:
+    mangled entry name -> "N registers; X bytes spill stores; Y bytes spill
+    loads" (the ring designs of C, D, F and G are s2_fwd_kernel,
+    deconv_ring_kernel, s1_dk_kernel and s2_dk_kernel)."""
+    out, entry = {}, None
+    for ln in log.splitlines():
+        if "Compiling entry function" in ln:
+            entry = ln.split("'")[1] if "'" in ln else ln.strip()
+        elif entry and ("spill" in ln or "registers" in ln):
+            out[entry] = (out.get(entry, "") + "; " + ln.split(":", 1)[-1].strip()).strip("; ")
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -1219,8 +1295,7 @@ def main() -> int:
     build_s = time.perf_counter() - t0
     _build.lib()
     log = so.with_suffix(".log")
-    ptxas = [ln.strip() for ln in log.read_text().splitlines()
-             if "registers" in ln or "spill" in ln] if log.is_file() else []
+    ptxas = ptxas_report(log.read_text()) if log.is_file() else {}
     emit({"env": {"gpu": smi, "torch": torch.__version__, "cuda": torch.version.cuda,
                   "device": torch.cuda.get_device_name(0), "build_s": build_s,
                   "ptxas": ptxas}})

@@ -1,12 +1,13 @@
 // Shared building blocks of the port's hand-written Hopper convolution
 // kernels: the forward tiles of conv_k3.cuh (conv2d_k3.cu, conv3d_k3.cu
 // and the float32 conv3d_k3s2.cu), the weight gradients of dk_k3.cuh
-// (conv2d_dk_k3.cu, conv3d_dk_k3.cu, the float32 conv3d_dk_k3s2.cu), the
-// bf16 stride-2 rings of s2_ring.cuh (conv3d_k3s2.cu, conv3d_dk_k3s2.cu)
-// and deconv3d_k3s2.cu.
+// (conv2d_dk_k3.cu, the float32 conv3d_dk_k3.cu and conv3d_dk_k3s2.cu),
+// the bf16 rings of s2_ring.cuh (conv3d_k3s2.cu, conv3d_dk_k3s2.cu) and
+// s1_dk_ring.cuh (conv3d_dk_k3.cu), and deconv3d_k3s2.cu.
 //
-// The description below is that of conv_k3.cuh's design; s2_ring.cuh
-// keeps the block's kernel resident and walks D or H instead.
+// The description below is that of conv_k3.cuh's design; the rings keep a
+// block's kernel resident or its partial in registers and walk D or H
+// instead.
 //
 // Every kernel is an implicit GEMM: a block owns a tile of output voxels
 // (rows of the GEMM's M) and all Cout channels (N), stages the input rows

@@ -7,7 +7,9 @@
 // that the TPU kernel folds into its lanes, conv3d_s2_pallas.py:201-205),
 // and the TMA zero-fills the padding at -1 and past the edge.  Each ring
 // slot completes on an mbarrier; one thread issues the boxes, so no warp
-// spends its issue slots on copies.
+// spends its issue slots on copies.  The TMA, mbarrier and wgmma helpers
+// below also serve kernel F's ring (s1_dk_ring.cuh) and kernel D's
+// (deconv3d_k3s2.cu).
 //
 // Kernel C (s2_fwd_kernel) walks D input-stationary, as the TPU kernel's
 // parity rings do (conv3d_s2_pallas.py:129-182).  A block owns a 4 x 32

@@ -36,8 +36,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-Xptxas=-v")
 
 # kernel name -> (C entry point, device pointers, int arguments).  Forward
-# conv kernels take (x, w, y, dtype, N, [D,] H, W, C, Co), kernel C also
-# the output D-slices per block of its bf16 walk; the
+# conv kernels take (x, w, y, dtype, N, [D,] H, W, C, Co), kernels C and D
+# also the D-slices per block of their bf16 walks; the
 # weight-gradient kernels take (x, g, dk, workspace, dtype, N, D, H, W, C,
 # Co, chunks); the cost volume takes (fL, fR, out, dtype, N, H, W, F, D,
 # mask_left), the correlation (fL, fR, out, dtype, N, H, W, C, D, stride),
@@ -46,7 +46,7 @@ ENTRY_POINTS = {
     "conv2d_k3": ("dsm_conv2d_k3", 3, 6),
     "conv3d_k3": ("dsm_conv3d_k3", 3, 7),
     "conv3d_k3s2": ("dsm_conv3d_k3s2", 3, 8),
-    "deconv3d_k3s2": ("dsm_deconv3d_k3s2", 3, 7),
+    "deconv3d_k3s2": ("dsm_deconv3d_k3s2", 3, 8),
     "conv2d_dk_k3": ("dsm_conv2d_dk_k3", 4, 8),
     "conv3d_dk_k3": ("dsm_conv3d_dk_k3", 4, 8),
     "conv3d_dk_k3s2": ("dsm_conv3d_dk_k3s2", 4, 8),
@@ -56,9 +56,9 @@ ENTRY_POINTS = {
 }
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 # A weight-gradient kernel splits the positions into at most DK_CHUNKS
-# chunks (kernel G: as many as its wrapper plans), each summed into its own
-# float32 partial dK; a second pass adds the partials in a fixed order, so
-# dK is the same bits on every run.
+# chunks (kernels F and G in bf16: as many as their wrappers plan), each
+# summed into its own float32 partial dK; a second pass adds the partials
+# in a fixed order, so dK is the same bits on every run.
 DK_CHUNKS = 128
 
 LAUNCHES: dict[str, int] = {name: 0 for name in ENTRY_POINTS}

@@ -10,8 +10,9 @@ PyTorch version with plain autograd for the rest:
     128 (GCNet's l31/l32) (``_Conv3dK3``, JAX ``_s1_bwd``
     ``folded.py:120-141``): forward and dx on kernel B
     (``csrc/conv3d_k3.cu``; dx with the flipped, channel-swapped kernel),
-    dK on kernel F (``csrc/conv3d_dk_k3.cu``; at 128 -> 128 its partials
-    planned by :func:`dk_k3_128_chunks`).
+    dK on kernel F (``csrc/conv3d_dk_k3.cu``; bf16 on the row ring of
+    ``csrc/s1_dk_ring.cuh``, its rows and partials planned by
+    :func:`dk_k3_rows` and :func:`dk_k3_chunks`).
     The Cout=1 classifier head stays plain, as JAX computes it outside
     Pallas (``folded.py:170-206``).
   * ``conv3d_s2`` — 3x3x3 stride 2 pad 1, even D/H/W, C in {32, 64},
@@ -26,7 +27,8 @@ PyTorch version with plain autograd for the rest:
   * ``deconv3d_k3s2`` — ConvTranspose3d k3 s2 p1 op1 on the flax
     (3,3,3,Cout,Cin) kernel, Cin 64 -> Cout 32 (``_Deconv3dK3S2``, JAX
     ``_fdc_bwd`` ``folded.py:347-361``): forward on kernel D
-    (``csrc/deconv3d_k3s2.cu``), d(input) on kernel C (the stride-2 conv of
+    (``csrc/deconv3d_k3s2.cu``; bf16 on its D-walking ring, its runs
+    planned by :func:`deconv_run`), d(input) on kernel C (the stride-2 conv of
     the cotangent), dW on kernel G with the roles swapped.  The 64 -> 64
     deconv is plain both ways, as in JAX.
 
@@ -141,18 +143,51 @@ def s2_fwd_runs(do: int, run: int) -> list[tuple[int, int]]:
     return [(d0, min(do, d0 + run)) for d0 in range(0, do, run)]
 
 
-# Kernel F at 128 -> 128 (csrc/conv3d_dk_k3.cu): blocks per chunk (9 tap
-# groups x 4 tiles of 32 output channels) and blocks resident per SM
-DK_K3_128_BLOCKS, DK_K3_128_BLOCKS_PER_SM = 36, 2
+# Kernel F's bf16 ring (csrc/conv3d_dk_k3.cu on csrc/s1_dk_ring.cuh): (C, Co)
+# -> (segment positions, Co tile, blocks resident per SM)
+DK_K3_TILES = {(32, 32): (96, 32, 2), (32, 64): (64, 64, 2), (64, 32): (48, 32, 2),
+               (64, 64): (48, 64, 1), (128, 128): (32, 16, 1)}
 
 
-def dk_k3_128_chunks(rows: int, sms: int) -> int:
-    """Partials of kernel F at 128 -> 128 for ``rows`` cotangent rows: as
-    many chunks as make its blocks fill ``sms`` SMs at two a SM, with no
-    empty chunk.  (At C, Co in {32, 64} F takes one chunk per row, at most
-    ``_build.DK_CHUNKS``.)"""
-    per = _cdiv(rows, _cdiv(sms * DK_K3_128_BLOCKS_PER_SM, DK_K3_128_BLOCKS))
+def dk_k3_rows(n: int, d: int, h: int, w: int, c: int, co: int) -> int:
+    """Cotangent rows (n, od, w-segment, oh) that kernel F's bf16 walk sums
+    for x (n, d, h, w, c) and a cotangent of co channels."""
+    return n * d * _cdiv(w, DK_K3_TILES[c, co][0]) * h
+
+
+def dk_k3_chunks(rows: int, c: int, co: int, sms: int) -> int:
+    """Partials of kernel F in bf16: one per block that runs at once (3 kd
+    x Co tiles a chunk), as many as fill ``sms`` SMs, with no empty chunk.
+    (Its float32 tiles take one chunk per row, at most ``_build.DK_CHUNKS``.)"""
+    _, cob, per_sm = DK_K3_TILES[c, co]
+    per = _cdiv(rows, max(1, sms * per_sm // (3 * (co // cob))))
     return _cdiv(rows, per)
+
+
+# Kernel D's bf16 ring (csrc/deconv3d_k3s2.cu): input rows x columns of a
+# block's tile; a block's resident kernel (110.6 KB) costs about as much
+# as DECONV_KERNEL_STEPS of its steps (one input slice, 21 KB with the
+# halo, in and two output slices, 64 KB, out)
+DECONV_TILE = (4, 32)
+DECONV_KERNEL_STEPS = 1.3
+
+
+def deconv_run(n: int, d: int, h: int, w: int, sms: int) -> int:
+    """Input D-slices per block of kernel D's bf16 walk, for x (n, d, h, w,
+    64).  One block fits an SM; a block of run r takes r steps, stages r + 1
+    slices and its resident kernel, so a launch takes about ceil(blocks /
+    sms) x (r + 1/4 + DECONV_KERNEL_STEPS) step times: the run with the
+    least, the longest on ties."""
+    rh, tm = DECONV_TILE
+    cols = n * _cdiv(h, rh) * _cdiv(w, tm)
+    cost = lambda r: (_cdiv(cols * _cdiv(d, r), sms) * (r + 0.25 + DECONV_KERNEL_STEPS), -r)
+    return min(range(1, d + 1), key=cost)
+
+
+def deconv_runs(d: int, run: int) -> list[tuple[int, int]]:
+    """The input D-slices [u0, u1) of each run, as kernel D's blocks take
+    them; a run writes output slices 2 u0 .. 2 u1 - 1."""
+    return [(u0, min(d, u0 + run)) for u0 in range(0, d, run)]
 
 
 def s2_dk_rows(n: int, d: int, h: int, w: int) -> int:
@@ -239,8 +274,9 @@ def deconv3d_k3s2_kernel(x: torch.Tensor, k: torch.Tensor) -> torch.Tensor:
                          f"x {tuple(x.shape)}, k {tuple(k.shape)}")
     n, d, h, w, c = x.shape
     y = torch.empty((n, 2 * d, 2 * h, 2 * w, 32), dtype=x.dtype, device=x.device)
+    run = deconv_run(n, d, h, w, _build.sm_count(x.device.index))
     _build.launch("deconv3d_k3s2", x.device, x.data_ptr(), k.data_ptr(), y.data_ptr(),
-                  _build.DTYPE_CODES[x.dtype], n, d, h, w, c, 32)
+                  _build.DTYPE_CODES[x.dtype], n, d, h, w, c, 32, run)
     return y
 
 
@@ -257,8 +293,11 @@ def conv3d_dk_k3(x: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
                          f"{{32, 64}} or 128 -> 128; got {tuple(x.shape)}, {tuple(g.shape)}")
     n, d, h, w, c = x.shape
     co = g.shape[-1]
-    rows = n * d * h
-    chunks = dk_k3_128_chunks(rows, _build.sm_count(x.device.index)) if c == 128 else None
+    if x.dtype == torch.bfloat16:
+        rows = dk_k3_rows(n, d, h, w, c, co)
+        chunks = dk_k3_chunks(rows, c, co, _build.sm_count(x.device.index))
+    else:
+        rows, chunks = n * d * h, None
     return _build.launch_dk("conv3d_dk_k3", x, g, 27, (n, d, h, w, c, co), rows,
                             chunks).reshape(3, 3, 3, c, co)
 

@@ -1,5 +1,6 @@
 """Launch plans of kernels C and G (the stride-2 3x3x3 conv and its dK),
-and of kernel F (the stride-1 dK) at 128 -> 128.
+and of kernel F (the stride-1 dK) at 128 -> 128 (its other widths:
+``tests/test_torch_k3_plans.py``).
 
 The wrappers in ``dsmnet_tpu_torch/ops/conv3d.py`` size kernel C's D-runs
 and kernel G's and F's partials in Python; the CUDA kernels cut their
@@ -158,19 +159,21 @@ _F128_SHAPES = [(1, 6, 12, 24, 128), (2, 6, 12, 24, 128), (1, 3, 6, 12, 128),
 @pytest.mark.parametrize("sms", [132, 114])
 @pytest.mark.parametrize("shape", _F128_SHAPES, ids=_shape_id)
 def test_dk_k3_128_chunks_cover_every_row_once(shape, sms):
-    """Kernel F's chunks at 128 -> 128 are contiguous, non-empty ranges of
-    the cotangent's (n, d, h) rows that cover each row exactly once, and
-    its 36 blocks a chunk fill the SMs twice over where the rows allow."""
+    """Kernel F's bf16 chunks at 128 -> 128 are contiguous, non-empty ranges
+    of the cotangent's (n, d, 32-position segment, h) rows that cover each
+    row exactly once, and its 24 blocks a chunk (3 kd x 8 Co tiles of 16)
+    fill the SMs once where the rows allow."""
     n, d, h, w, c = shape
-    rows = n * d * h
-    chunks = conv3d.dk_k3_128_chunks(rows, sms)
+    rows = conv3d.dk_k3_rows(n, d, h, w, c, c)
+    assert rows == n * d * -(-w // 32) * h
+    chunks = conv3d.dk_k3_chunks(rows, c, c, sms)
     ranges = _chunk_ranges(rows, chunks)
     assert len(ranges) == chunks and ranges[0][0] == 0 and ranges[-1][1] == rows
     assert all(lo < hi for lo, hi in ranges)
     assert all(a[1] == b[0] for a, b in zip(ranges, ranges[1:]))
-    # as many chunks as put two blocks on every SM, at most, each of the
+    # as many chunks as put one block on every SM, at most, each of the
     # fewest rows that lets that many chunks cover the rows
-    target = -(-2 * sms // conv3d.DK_K3_128_BLOCKS)
+    target = max(1, sms // 24)
     assert chunks <= target and -(-rows // chunks) == -(-rows // target)
 
 
@@ -192,6 +195,6 @@ def test_dk_k3_128_wrapper_allocates_one_partial_per_chunk(shape, monkeypatch):
         dk = conv3d.conv3d_dk_k3(x, x)
     assert tuple(dk.shape) == (3, 3, 3, 128, 128)
     (name, args), = calls
-    chunks = conv3d.dk_k3_128_chunks(n * d * h, 132)
+    chunks = conv3d.dk_k3_chunks(conv3d.dk_k3_rows(n, d, h, w, c, c), c, c, 132)
     assert name == "conv3d_dk_k3" and args[-1] == chunks
     assert (chunks, 27 * 128 * 128) in empties
