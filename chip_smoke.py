@@ -21,7 +21,7 @@
    copy, the plain version's bits.  The device time (CUDA graph replays timed with
    CUDA events) of the kernel, the plain version and one PyTorch call
    (cuDNN for the convolutions) beside the card's bound for the work;
-   also the kernel's eager wall time per call; for C, D, F and G the MB
+   also the kernel's eager wall time per call; for B-G the MB
    their bf16 designs move from L2 into shared memory per launch, beside
    the count for the earlier tiles (``l2_to_shared_mb``,
    ``l2_to_shared_mb_earlier_tiles``).  Small ragged-edge shapes (chunks
@@ -404,7 +404,23 @@ def kernel_specs():
                                            (vol32(Bb), k3(32, 64), 1)]},
              edges=[((1, 5, 10, 40, 32), k3(32, 32)), ((1, 5, 10, 40, 32), k3(32, 64)),
                     ((1, 5, 9, 20, 64), k3(64, 32)), ((1, 5, 9, 20, 64), k3(64, 64)),
-                    ((1, 3, 5, 20, 128), k3(128, 128))]),
+                    ((1, 3, 5, 20, 128), k3(128, 128)),
+                    # B's bf16 walk, for each (C, Co): D = 1 with odd H and W
+                    # = 20 (a 16-column tile and a ragged one); D = 2 at batch
+                    # 2; ranges of 2 to 4 items that cross tile boundaries
+                    # (odd D) and end in a ragged one (at 132 SMs: 285 items in
+                    # ranges of 2 at 32 -> 32, 165 in ranges of 2, 207 in ranges
+                    # of 4 per Co tile at 64 -> 64), odd H, W = 72 or 40
+                    ((1, 1, 7, 20, 32), k3(32, 32)), ((2, 2, 9, 40, 32), k3(32, 32)),
+                    ((1, 19, 17, 72, 32), k3(32, 32)),
+                    ((1, 1, 7, 20, 32), k3(32, 64)), ((2, 2, 9, 40, 32), k3(32, 64)),
+                    ((1, 11, 17, 72, 32), k3(32, 64)),
+                    ((1, 1, 7, 20, 64), k3(64, 32)), ((2, 2, 9, 40, 64), k3(64, 32)),
+                    ((1, 11, 17, 72, 64), k3(64, 32)),
+                    ((1, 1, 7, 20, 64), k3(64, 64)), ((2, 2, 9, 40, 64), k3(64, 64)),
+                    ((1, 23, 17, 40, 64), k3(64, 64)),
+                    # 128 -> 128 split: D = 3 at l31's H and W, and batch 2
+                    ((1, 3, 12, 24, 128), k3(128, 128)), ((2, 2, 9, 40, 128), k3(128, 128))]),
         dict(name="conv3d_k3s2", kind="conv", route="cuda",
              source="dsmnet_tpu_torch/csrc/conv3d_k3s2.cu",
              replaces="dsmnet_tpu/ops/conv3d_s2_pallas.py:208", primary="train",
@@ -453,7 +469,11 @@ def kernel_specs():
              paths={"train": [((2 * B, H2, W2, 32), (2 * B, H2, W2, 32), 8)],
                     "train_gcnet": [((2 * Bg, H2, W2, 32), (2 * Bg, H2, W2, 32), 17)],
                     "train_psmnet_basic": [((Bb, H2, W2, 32), (Bb, H2, W2, 32), 16)]},
-             edges=[((1, 10, 40, 32), (1, 10, 40, 32))]),
+             # E's bf16 walk: W = 40 (one ragged 96-position segment), W =
+             # 100 and 200 (a ragged last segment) at batch 1 and 2, odd H,
+             # chunks of one row and of two that start inside an oh walk
+             edges=[((1, 10, 40, 32), (1, 10, 40, 32)), ((2, 9, 100, 32), (2, 9, 100, 32)),
+                    ((1, 7, 200, 32), (1, 7, 200, 32)), ((2, 45, 200, 32), (2, 45, 200, 32))]),
         dict(name="conv3d_dk_k3", kind="dk", route="cuda",
              source="dsmnet_tpu_torch/csrc/conv3d_dk_k3.cu",
              replaces="dsmnet_tpu/ops/conv3d_pallas.py:341", primary="train",
@@ -660,19 +680,62 @@ def check_edges(spec, dev, gen):
 
 
 def staged_mb(name, a, b, sms):
-    """MB per launch that kernels C, D, F and G move from L2 into shared
-    memory at operand shapes ``a`` (x) and ``b`` (the kernel or the
-    cotangent): input rows and columns with their halo, kernel columns,
-    cotangent rows, each copy counted once per block that makes it; in bf16
-    for the s2_ring.cuh / s1_dk_ring.cuh / deconv ring designs and for the
-    earlier tiles (conv_k3.cuh, dk_k3.cuh, D's output rows: their f32
-    instantiations' design); None for the other kernels."""
-    from dsmnet_tpu_torch.ops import conv3d
+    """MB per launch that kernels B-G move from L2 into shared memory at
+    operand shapes ``a`` (x) and ``b`` (the kernel or the cotangent): input
+    rows and columns with their halo, kernel columns, cotangent rows, each
+    copy counted once per block that makes it; in bf16 for the
+    s1_fwd_ring.cuh / s2_ring.cuh / s1_dk_ring.cuh / deconv ring designs and
+    for the earlier tiles (conv_k3.cuh, dk_k3.cuh, D's output rows: their
+    f32 instantiations' design); None for the other kernels."""
+    from dsmnet_tpu_torch.ops import conv2d, conv3d
 
     cdiv = lambda p, q: -(-p // q)
-    if name not in ("conv3d_k3s2", "conv3d_dk_k3s2", "conv3d_dk_k3", "deconv3d_k3s2"):
+    if name not in ("conv3d_k3", "conv2d_dk_k3", "conv3d_k3s2", "conv3d_dk_k3s2",
+                    "conv3d_dk_k3", "deconv3d_k3s2"):
         return None
+    if name == "conv2d_dk_k3":
+        n, h, w, c = a
+        tw, cob, _ = conv2d.DK_TILE
+        rows = conv2d.dk_rows(n, h, w)
+        x_b, g_b = (tw + 2) * c * 2, tw * cob * 2
+        # each row brings its g segment and x row oh + 1; each line's first
+        # row also x row 0, a chunk's first row inside a line x rows oh and
+        # oh - 1
+        firsts = sum(2 for lo, _ in _f_ranges(rows, conv2d.dk_chunks(rows, sms)) if lo % h)
+        new = rows * (x_b + g_b) + (n * cdiv(w, tw) + firsts) * x_b
+        # dk_k3.cuh: 3 kh tap groups per 64-position segment, its g segment
+        # and one x row of 66 columns each
+        old = 3 * n * h * cdiv(w, 64) * (64 * 32 + 66 * c) * 2
+        return new / 1e6, old / 1e6
     n, d, h, w, c = a
+    if name == "conv3d_k3":
+        co = b[-1]
+        rh, tm = conv3d.K3_TILE
+        cob = conv3d.K3_COB[c, co]
+        box = (rh + 2) * (tm + 2) * c * 2
+        tiles = n * cdiv(h, rh) * cdiv(w, tm)
+        # the input slices that some block's taps read: 3 D - 2 (n, tile,
+        # slice, kd) triples (D = 1: one)
+        reads = tiles * (3 * d - 2 if d > 1 else 1)
+        if c == 128:
+            # the split: one box and the 9 c x cob rows of its kd per block
+            # that reads a slice, for each Co tile
+            new = co // cob * reads * (box + 9 * c * cob * 2)
+        else:
+            # per Co tile and block: its 27 c x cob kernel columns, and each
+            # run's input slices max(d0 - 1, 0) .. min(d1, d - 1)
+            items = conv3d.k3_items(n, d, h, w)
+            blocks = conv3d.k3_runs(items, d, conv3d.k3_run(items, c, co, sms))
+            new = co // cob * sum(27 * c * cob * 2 + box * sum(
+                min(d1, d - 1) - max(d0 - 1, 0) + 1 for _, d0, d1 in runs) for runs in blocks)
+        # conv_k3.cuh: blocks of rh x tm outputs of one (n, d), per kd that
+        # reads a slice its rh + 2 rows of tm + 2 columns and the kd's nine
+        # c x co kernel slices
+        tm, rh = {(32, 32): (64, 4), (32, 64): (64, 2), (64, 32): (48, 4), (64, 64): (48, 4),
+                  (128, 128): (16, 4)}[c, co]
+        old = n * cdiv(h, rh) * cdiv(w, tm) * (3 * d - 2 if d > 1 else 1) * (
+            (rh + 2) * (tm + 2) * c + 9 * c * co) * 2
+        return new / 1e6, old / 1e6
     if name == "conv3d_k3s2":
         do, ho, wo = d // 2, h // 2, w // 2
         rh, tm, ncob = conv3d.S2_FWD_TILES[c]
@@ -1011,7 +1074,8 @@ def profile(tag: str, fn, top: int = 25) -> None:
     kernels.sort(key=lambda r: -r[1])
     device_ms = sum(ms for _, ms, _ in kernels)
     ported_ms = sum(ms for name, ms, _ in kernels if any(
-        s in name for s in ("conv_k3_kernel", "s2_fwd_kernel", "deconv_k3s2_kernel",
+        s in name for s in ("conv_k3_kernel", "s1_fwd_kernel", "s1_fwd_split_kernel",
+                            "s1_fwd_reduce", "s2_fwd_kernel", "deconv_k3s2_kernel",
                             "deconv_ring_kernel", "dk_k3_kernel", "s1_dk_kernel",
                             "s2_dk_kernel", "dk_reduce",
                             "cost_volume_kernel", "corr1d_kernel", "fused_costvol_kernel")))
@@ -1270,8 +1334,9 @@ def check_remat(dev, name: str = "gcnet", steps: int = 3) -> None:
 def ptxas_report(log: str) -> dict:
     """Registers and spills per kernel entry from nvcc's ``-Xptxas=-v`` log:
     mangled entry name -> "N registers; X bytes spill stores; Y bytes spill
-    loads" (the ring designs of C, D, F and G are s2_fwd_kernel,
-    deconv_ring_kernel, s1_dk_kernel and s2_dk_kernel)."""
+    loads" (the ring designs of B, C, D, F (and E) and G are s1_fwd_kernel
+    (128 -> 128: s1_fwd_split_kernel), s2_fwd_kernel, deconv_ring_kernel,
+    s1_dk_kernel and s2_dk_kernel)."""
     out, entry = {}, None
     for ln in log.splitlines():
         if "Compiling entry function" in ln:

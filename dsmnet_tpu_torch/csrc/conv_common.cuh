@@ -1,9 +1,10 @@
 // Shared building blocks of the port's hand-written Hopper convolution
-// kernels: the forward tiles of conv_k3.cuh (conv2d_k3.cu, conv3d_k3.cu
-// and the float32 conv3d_k3s2.cu), the weight gradients of dk_k3.cuh
-// (conv2d_dk_k3.cu, the float32 conv3d_dk_k3.cu and conv3d_dk_k3s2.cu),
-// the bf16 rings of s2_ring.cuh (conv3d_k3s2.cu, conv3d_dk_k3s2.cu) and
-// s1_dk_ring.cuh (conv3d_dk_k3.cu), and deconv3d_k3s2.cu.
+// kernels: the forward tiles of conv_k3.cuh (conv2d_k3.cu and the float32
+// conv3d_k3.cu and conv3d_k3s2.cu), the weight gradients of dk_k3.cuh (the
+// float32 conv2d_dk_k3.cu, conv3d_dk_k3.cu and conv3d_dk_k3s2.cu), the
+// bf16 rings of s2_ring.cuh (conv3d_k3s2.cu, conv3d_dk_k3s2.cu),
+// s1_dk_ring.cuh (conv3d_dk_k3.cu, conv2d_dk_k3.cu) and s1_fwd_ring.cuh
+// (conv3d_k3.cu), and deconv3d_k3s2.cu.
 //
 // The description below is that of conv_k3.cuh's design; the rings keep a
 // block's kernel resident or its partial in registers and walk D or H

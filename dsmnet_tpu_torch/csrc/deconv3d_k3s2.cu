@@ -191,30 +191,6 @@ __device__ inline void wgmma_n32_kmajor(float (&d)[4][4], const uint32_t (&a)[4]
       : "memory");
 }
 
-__device__ inline void st_shared_u32(uint32_t addr, uint32_t v) {
-  asm volatile("st.shared.u32 [%0], %1;\n" ::"r"(addr), "r"(v) : "memory");
-}
-
-// one TMA store of a 4-D box from shared memory
-__device__ inline void tma_store_4d(const CUtensorMap* map, uint32_t src, int c0, int c1, int c2,
-                                    int c3) {
-  asm volatile(
-      "cp.async.bulk.tensor.4d.global.shared::cta.bulk_group [%0, {%2, %3, %4, %5}], [%1];\n" ::"l"(
-          reinterpret_cast<uint64_t>(map)),
-      "r"(src), "r"(c0), "r"(c1), "r"(c2), "r"(c3)
-      : "memory");
-  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
-}
-
-// the issuing thread's TMA stores have read (READ) or written their source
-template <bool READ>
-__device__ inline void tma_store_wait() {
-  if constexpr (READ)
-    asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
-  else
-    asm volatile("cp.async.bulk.wait_group 0;\n" ::: "memory");
-}
-
 // Taps of kd_a on the slice at `slot_a` and, when TWO, of kd_b on the slice
 // at `slot_b`, into the four parity tiles acc[2 ph + pw].  Group j is one
 // (slice, A shift): shift s = (sh, sw) reads the slot sh rows and sw

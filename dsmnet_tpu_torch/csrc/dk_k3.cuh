@@ -1,9 +1,8 @@
 // The weight gradient of the 3x3 (2-D, KD = 1) and 3x3x3 (3-D, KD = 3)
 // convolutions of kernels A, B and C, stride S, pad 1: kernels E, F, G.
-// Its instantiations: E in bf16 and float32 (conv2d_dk_k3.cu), and the
-// float32 instantiations of F (conv3d_dk_k3.cu) and G (conv3d_dk_k3s2.cu),
-// kept for the checks; F and G in bf16 run on s1_dk_ring.cuh and
-// s2_ring.cuh.
+// Its instantiations: the float32 ones of E (conv2d_dk_k3.cu), F
+// (conv3d_dk_k3.cu) and G (conv3d_dk_k3s2.cu), kept for the checks; E and
+// F in bf16 run on s1_dk_ring.cuh, G on s2_ring.cuh.
 //
 //   dK[kd, kh, kw, c, o] = sum over the cotangent's positions p of
 //                          x[S p + (kd, kh, kw) - 1, c] * g[p, o]

@@ -33,6 +33,11 @@
 // chunks (ops/conv3d.py dk_k3_chunks, one per block that runs at once) are
 // added in a fixed order by dk_reduce: the same bits on every run, no
 // float atomics.
+//
+// Kernel E (conv2d_dk_k3.cu), the 3x3 2-D conv's dK, runs the same ring at
+// KD = 1: x and g viewed as (N, 1, H, W, C), only the centre kd's blocks,
+// so each block takes all nine (kh, kw) taps and x and g reach shared
+// memory once a launch.
 #pragma once
 
 #include "s2_ring.cuh"
@@ -46,7 +51,7 @@ namespace dsm {
 // oh (loaded at a line's or the block's first row) and oh + 1, each XP
 // planes of TW + 2 lines of LBX bytes, then the g segment, TW lines of LBG
 // bytes.
-template <int C, int CO, int COB, int TW, int TPW, int MS>
+template <int C, int CO, int COB, int TW, int TPW, int MS, int KD = 3>
 struct S1Dk {
   static constexpr int kTW = TW, kTPW = TPW;
   static constexpr int NT = 9 / TPW * MS * 32;
@@ -66,22 +71,16 @@ struct S1Dk {
   static constexpr int MI = C / 16;
   static constexpr int MIW = MI / MS;                 // m16 tiles of a warp
   static constexpr int NI = COB / 8;
-  static constexpr int TOTAL = 27 * C * CO;
+  static constexpr int TOTAL = KD * 9 * C * CO;       // KD = 1: the 2-D conv's nine taps
   // the ring, the halo row, NS mbarriers
   static constexpr size_t SMEM = static_cast<size_t>(NS) * STAGE_BYTES + XROW + 64;
   static_assert(TW % 16 == 0 && XCOLS <= 256 && C % 16 == 0 && (C <= 64 || C % 64 == 0) &&
                     CO % COB == 0 && NI % 2 == 0 && G_BYTES % 1024 == 0 &&
-                    (TPW == 1 || TPW == 3) && MI % MS == 0,
+                    (TPW == 1 || TPW == 3) && MI % MS == 0 && (KD == 1 || KD == 3),
                 "widths");
   static_assert(LBG == 32 || LBG == 64 || LBG == 128, "g line");
   static_assert(SMEM <= 232448, "shared memory");
 };
-
-template <int LB>
-constexpr CUtensorMapSwizzle swizzle_for() {
-  return LB == 128 ? CU_TENSOR_MAP_SWIZZLE_128B
-                   : LB == 64 ? CU_TENSOR_MAP_SWIZZLE_64B : CU_TENSOR_MAP_SWIZZLE_32B;
-}
 
 // One staged row into a warp's taps kw0 .. kw0 + TPW - 1 of one kh, its
 // channels 16 mi0 .. 16 (mi0 + MIW) - 1: c[t] += x_tap (k-major; the x row
@@ -131,23 +130,24 @@ __device__ __forceinline__ void s1_dk_row(float (&c)[Cfg::kTPW][Cfg::MIW][Cfg::N
   }
 }
 
-// grid (3 kd x NCOB Co tiles, chunks), kd fastest; chunk b sums the
+// grid (KD kd x NCOB Co tiles, chunks), kd fastest; chunk b sums the
 // cotangent rows [b * per, (b + 1) * per) of the `items` rows (n, od,
 // w-segment, oh), oh fastest, into ws[b].  `xmap`: x as (C, W, H, N D),
 // box (CP, TW + 2, 1, 1); `gmap`: g as (CO, W, H, N D), box (COB, TW, 1, 1).
-template <int C, int CO, int COB, int TW, int TPW, int MS, int MINB>
-__global__ void __launch_bounds__(S1Dk<C, CO, COB, TW, TPW, MS>::NT, MINB)
+template <int C, int CO, int COB, int TW, int TPW, int MS, int MINB, int KD>
+__global__ void __launch_bounds__(S1Dk<C, CO, COB, TW, TPW, MS, KD>::NT, MINB)
     s1_dk_kernel(const __grid_constant__ CUtensorMap xmap, const __grid_constant__ CUtensorMap gmap,
                  float* __restrict__ ws, int D, int H, int nseg, int items, int per) {
-  using Cfg = S1Dk<C, CO, COB, TW, TPW, MS>;
+  using Cfg = S1Dk<C, CO, COB, TW, TPW, MS, KD>;
   constexpr int NS = Cfg::NS, LEAD = Cfg::LEAD;
   extern __shared__ __align__(1024) unsigned char smem[];
   const uint32_t s_ring = smem_u32(smem);
   const uint32_t s_halo = s_ring + NS * Cfg::STAGE_BYTES;   // x row oh - 1 of the first row
   const uint32_t s_bar = s_halo + Cfg::XROW;
 
-  const int kd = blockIdx.x % 3;
-  const int o0 = blockIdx.x / 3 * COB;
+  // KD = 1 (the 2-D conv, D = 1): only the centre kd's blocks run
+  const int kd = KD == 3 ? blockIdx.x % 3 : 1;
+  const int o0 = blockIdx.x / KD * COB;
   const int i_lo = blockIdx.y * per;
   const int i_hi = min(items, i_lo + per);
   const int lane = threadIdx.x & 31;
@@ -201,7 +201,8 @@ __global__ void __launch_bounds__(S1Dk<C, CO, COB, TW, TPW, MS>::NT, MINB)
     if (kh == 1) return (k == 0 || oh == 0) ? cur : prev + Cfg::XROW;
     return k == 0 ? s_halo : (k == 1 || oh == 1) ? prev : prev2 + Cfg::XROW;
   };
-  float* out = ws + static_cast<long long>(blockIdx.y) * Cfg::TOTAL + kd * 9 * C * CO + o0;
+  float* out = ws + static_cast<long long>(blockIdx.y) * Cfg::TOTAL +
+               (KD == 3 ? kd : 0) * 9 * C * CO + o0;
   const int gq = lane >> 2, tq = lane & 3;
 
   // this warp's taps (kh, kw0 .. kw0 + TPW - 1) and m16 tiles mi0 ..
@@ -245,18 +246,20 @@ __global__ void __launch_bounds__(S1Dk<C, CO, COB, TW, TPW, MS>::NT, MINB)
 }
 
 // x (N, D, H, W, C) and g (N, D, H, W, CO) bf16; ws holds `chunks`
-// partials of 27 C CO floats; `reduce` adds them into dk.
-template <int C, int CO, int COB, int TW, int TPW, int MS, int MINB, typename Reduce>
+// partials of KD 9 C CO floats; `reduce` adds them into dk.  KD = 1: the
+// 3x3 2-D conv's dK (kernel E), x and g viewed as (N, 1, H, W, C), D = 1.
+template <int C, int CO, int COB, int TW, int TPW, int MS, int MINB, int KD = 3, typename Reduce>
 cudaError_t launch_s1_dk(const void* x, const void* g, void* dk, void* ws, int N, int D, int H,
                          int W, int chunks, Reduce reduce, cudaStream_t stream) {
-  using Cfg = S1Dk<C, CO, COB, TW, TPW, MS>;
-  auto kernel = s1_dk_kernel<C, CO, COB, TW, TPW, MS, MINB>;
+  using Cfg = S1Dk<C, CO, COB, TW, TPW, MS, KD>;
+  auto kernel = s1_dk_kernel<C, CO, COB, TW, TPW, MS, MINB, KD>;
   static std::atomic<uint32_t> smem_set{0};
   cudaError_t err = set_smem_once(kernel, Cfg::SMEM, smem_set);
   if (err != cudaSuccess) return err;
   const int nseg = (W + TW - 1) / TW;
   const long long items64 = static_cast<long long>(N) * D * nseg * H;
-  if (items64 <= 0 || items64 > 0x7fffffff || chunks <= 0 || chunks > items64)
+  if (items64 <= 0 || items64 > 0x7fffffff || chunks <= 0 || chunks > items64 ||
+      (KD == 1 && D != 1))
     return cudaErrorInvalidValue;
   const int items = static_cast<int>(items64);
   const int per = (items + chunks - 1) / chunks;
@@ -275,7 +278,7 @@ cudaError_t launch_s1_dk(const void* x, const void* g, void* dk, void* ws, int N
   if (!make_map(&xmap, x, xdims, xstrides, xbox, swizzle_for<Cfg::LBX>()) ||
       !make_map(&gmap, g, gdims, gstrides, gbox, swizzle_for<Cfg::LBG>()))
     return cudaErrorInvalidValue;
-  kernel<<<dim3(3 * Cfg::NCOB, chunks), Cfg::NT, Cfg::SMEM, stream>>>(
+  kernel<<<dim3(KD * Cfg::NCOB, chunks), Cfg::NT, Cfg::SMEM, stream>>>(
       xmap, gmap, static_cast<float*>(ws), D, H, nseg, items, per);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;

@@ -8,8 +8,8 @@
 // and the TMA zero-fills the padding at -1 and past the edge.  Each ring
 // slot completes on an mbarrier; one thread issues the boxes, so no warp
 // spends its issue slots on copies.  The TMA, mbarrier and wgmma helpers
-// below also serve kernel F's ring (s1_dk_ring.cuh) and kernel D's
-// (deconv3d_k3s2.cu).
+// below also serve kernel F's ring (s1_dk_ring.cuh), kernel D's
+// (deconv3d_k3s2.cu) and kernel B's (s1_fwd_ring.cuh).
 //
 // Kernel C (s2_fwd_kernel) walks D input-stationary, as the TPU kernel's
 // parity rings do (conv3d_s2_pallas.py:129-182).  A block owns a 4 x 32
@@ -94,6 +94,30 @@ __device__ inline void tma_load_4d(uint32_t dst, const CUtensorMap* map, int c0,
       "%3, %4, %5}], [%6];\n" ::"r"(dst),
       "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(c2), "r"(c3), "r"(bar)
       : "memory");
+}
+
+__device__ inline void st_shared_u32(uint32_t addr, uint32_t v) {
+  asm volatile("st.shared.u32 [%0], %1;\n" ::"r"(addr), "r"(v) : "memory");
+}
+
+// one TMA store of a 4-D box from shared memory (clipped at the tensor's edge)
+__device__ inline void tma_store_4d(const CUtensorMap* map, uint32_t src, int c0, int c1, int c2,
+                                    int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.global.shared::cta.bulk_group [%0, {%2, %3, %4, %5}], [%1];\n" ::"l"(
+          reinterpret_cast<uint64_t>(map)),
+      "r"(src), "r"(c0), "r"(c1), "r"(c2), "r"(c3)
+      : "memory");
+  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+}
+
+// the issuing thread's TMA stores have read (READ) or written their source
+template <bool READ>
+__device__ inline void tma_store_wait() {
+  if constexpr (READ)
+    asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
+  else
+    asm volatile("cp.async.bulk.wait_group 0;\n" ::: "memory");
 }
 
 // ---------------------------------------------------------------- kernel C
@@ -602,6 +626,13 @@ __global__ void __launch_bounds__(S2Dk<C, TW>::NT, MINB)
       *reinterpret_cast<float2*>(out + (m + 8) * 64 + o) = make_float2(c[mi][ni][2], c[mi][ni][3]);
     }
   }
+}
+
+// the TMA swizzle of LB-byte lines (LB = 32, 64 or 128)
+template <int LB>
+constexpr CUtensorMapSwizzle swizzle_for() {
+  return LB == 128 ? CU_TENSOR_MAP_SWIZZLE_128B
+                   : LB == 64 ? CU_TENSOR_MAP_SWIZZLE_64B : CU_TENSOR_MAP_SWIZZLE_32B;
 }
 
 // a 4-D bf16 tensor map (dims innermost first, strides of dims 1-3 in

@@ -9,7 +9,10 @@ C == Co == 32 goes to the hand-written kernels, through the autograd
     ``conv2d_fwd_pallas_folded``);
   * dx: kernel A on the cotangent with the flipped, channel-swapped kernel;
   * dK: kernel E (``csrc/conv2d_dk_k3.cu``, replaces
-    ``conv2d_dk_pallas_folded``), float32, cast to the kernel's dtype.
+    ``conv2d_dk_pallas_folded``), float32, cast to the kernel's dtype; in
+    bf16 kernel F's row ring (``csrc/s1_dk_ring.cuh``) at KD = 1, all nine
+    taps a block, its rows and partials planned by :func:`dk_rows` and
+    :func:`dk_chunks`.
 
 Every other shape takes the plain version and plain autograd.
 """
@@ -21,8 +24,28 @@ import torch.nn.functional as F
 
 from .. import config
 from . import _build
+from .conv3d import DK_K3_TILES, _cdiv
 
 __all__ = ["conv2d_same", "conv2d_k3", "conv2d_k3_plain", "conv2d_dk_k3", "conv2d_dk_plain"]
+
+# Kernel E's bf16 ring (csrc/conv2d_dk_k3.cu): kernel F's 32 -> 32 ring at
+# KD = 1, so its segment positions, Co tile and blocks resident per SM
+DK_TILE = DK_K3_TILES[32, 32]
+
+
+def dk_rows(n: int, h: int, w: int) -> int:
+    """Cotangent rows (n, w-segment, oh) that kernel E's bf16 walk sums."""
+    return n * _cdiv(w, DK_TILE[0]) * h
+
+
+def dk_chunks(rows: int, sms: int) -> int:
+    """Partials of kernel E in bf16: one per block that runs at once (one
+    block of all nine taps per chunk), as many as fill ``sms`` SMs, with no
+    empty chunk.  (Its float32 tiles take one chunk per row, at most
+    ``_build.DK_CHUNKS``.)"""
+    _, cob, per_sm = DK_TILE
+    per = _cdiv(rows, max(1, sms * per_sm // (32 // cob)))
+    return _cdiv(rows, per)
 
 
 def conv2d_k3_plain(x: torch.Tensor, k: torch.Tensor) -> torch.Tensor:
@@ -77,8 +100,13 @@ def conv2d_dk_k3(x: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
         raise ValueError(f"conv2d_dk_k3 takes x and g (N,H,W,32); got {tuple(x.shape)}, "
                          f"{tuple(g.shape)}")
     n, h, w, c = x.shape
-    return _build.launch_dk("conv2d_dk_k3", x, g, 9, (n, 1, h, w, c, 32), n * h).reshape(
-        3, 3, 32, 32)
+    if x.dtype == torch.bfloat16:
+        rows = dk_rows(n, h, w)
+        chunks = dk_chunks(rows, _build.sm_count(x.device.index))
+    else:
+        rows, chunks = n * h, None
+    return _build.launch_dk("conv2d_dk_k3", x, g, 9, (n, 1, h, w, c, 32), rows,
+                            chunks).reshape(3, 3, 32, 32)
 
 
 class _Conv2dK3(torch.autograd.Function):

@@ -9,7 +9,10 @@ PyTorch version with plain autograd for the rest:
   * ``conv3d_same`` — 3x3x3 stride 1 SAME, C, Co in {32, 64}, and 128 ->
     128 (GCNet's l31/l32) (``_Conv3dK3``, JAX ``_s1_bwd``
     ``folded.py:120-141``): forward and dx on kernel B
-    (``csrc/conv3d_k3.cu``; dx with the flipped, channel-swapped kernel),
+    (``csrc/conv3d_k3.cu``; dx with the flipped, channel-swapped kernel;
+    bf16 on the D-walking ring of ``csrc/s1_fwd_ring.cuh``, its work items
+    and runs planned by :func:`k3_items` and :func:`k3_run`, 128 -> 128 on
+    its kd-split blocks with the partials of :func:`k3_split_partials`),
     dK on kernel F (``csrc/conv3d_dk_k3.cu``; bf16 on the row ring of
     ``csrc/s1_dk_ring.cuh``, its rows and partials planned by
     :func:`dk_k3_rows` and :func:`dk_k3_chunks`).
@@ -143,6 +146,52 @@ def s2_fwd_runs(do: int, run: int) -> list[tuple[int, int]]:
     return [(d0, min(do, d0 + run)) for d0 in range(0, do, run)]
 
 
+# Kernel B's bf16 ring (csrc/conv3d_k3.cu on csrc/s1_fwd_ring.cuh): output
+# rows x columns of a tile; (C, Co) -> output channels per block (the Co
+# tile) and blocks resident per SM.  128 -> 128 runs the kd-split blocks.
+K3_TILE = (8, 16)
+K3_COB = {(32, 32): 32, (32, 64): 64, (64, 32): 32, (64, 64): 32, (128, 128): 64}
+K3_BLOCKS_PER_SM = {(32, 32): 2, (32, 64): 1, (64, 32): 1, (64, 64): 1}
+
+
+def k3_items(n: int, d: int, h: int, w: int) -> int:
+    """Work items (n, h tile, w tile, output slice d), d fastest, of kernel
+    B's bf16 walk, per Co tile."""
+    rh, tm = K3_TILE
+    return n * _cdiv(h, rh) * _cdiv(w, tm) * d
+
+
+def k3_run(items: int, c: int, co: int, sms: int) -> int:
+    """Work items per block of kernel B's bf16 walk: contiguous ranges, so
+    that the blocks of every Co tile run at once on ``sms`` SMs, each range
+    its tiles' runs of output slices.  A block stages its 27 kernel taps
+    once, whatever its range, and each run's input slices once, so one
+    wave of long ranges stages the least and leaves no tail."""
+    ncob = co // K3_COB[c, co]
+    return _cdiv(items, max(1, sms * K3_BLOCKS_PER_SM[c, co] // ncob))
+
+
+def k3_runs(items: int, d: int, per: int) -> list[list[tuple[int, int, int]]]:
+    """Each block's runs (tile, d0, d1) of output slices, as kernel B's
+    bf16 walk cuts its range of ``per`` items: a run stages the input slices
+    max(d0 - 1, 0) .. min(d1, d - 1)."""
+    blocks = []
+    for lo in range(0, items, per):
+        runs, s, hi = [], lo, min(items, lo + per)
+        while s < hi:
+            tile = s // d
+            e = min(hi, (tile + 1) * d)
+            runs.append((tile, s - tile * d, s - tile * d + e - s))
+            s = e
+        blocks.append(runs)
+    return blocks
+
+
+def k3_split_partials(n: int, d: int, h: int, w: int) -> int:
+    """Floats of kernel B's 128 -> 128 partials: one f32 output per kd."""
+    return 3 * n * d * h * w * 128
+
+
 # Kernel F's bf16 ring (csrc/conv3d_dk_k3.cu on csrc/s1_dk_ring.cuh): (C, Co)
 # -> (segment positions, Co tile, blocks resident per SM)
 DK_K3_TILES = {(32, 32): (96, 32, 2), (32, 64): (64, 64, 2), (64, 32): (48, 32, 2),
@@ -231,8 +280,15 @@ def conv3d_k3(x: torch.Tensor, k: torch.Tensor) -> torch.Tensor:
     n, d, h, w, c = x.shape
     co = k.shape[4]
     y = torch.empty((n, d, h, w, co), dtype=x.dtype, device=x.device)
-    _build.launch("conv3d_k3", x.device, x.data_ptr(), k.data_ptr(), y.data_ptr(),
-                  _build.DTYPE_CODES[x.dtype], n, d, h, w, c, co)
+    ws, per = 0, 0  # the float32 tiles (conv_k3.cuh) take neither
+    if x.dtype == torch.bfloat16 and c == 128:
+        part = torch.empty((k3_split_partials(n, d, h, w),), dtype=torch.float32,
+                           device=x.device)
+        ws = part.data_ptr()
+    elif x.dtype == torch.bfloat16:
+        per = k3_run(k3_items(n, d, h, w), c, co, _build.sm_count(x.device.index))
+    _build.launch("conv3d_k3", x.device, x.data_ptr(), k.data_ptr(), y.data_ptr(), ws,
+                  _build.DTYPE_CODES[x.dtype], n, d, h, w, c, co, per)
     return y
 
 

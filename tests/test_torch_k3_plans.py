@@ -1,9 +1,11 @@
-"""Launch plans and schedules of kernels F and D in bf16.
+"""Launch plans and schedules of kernels F, E and D in bf16.
 
-Kernel F (the stride-1 3x3x3 dK, ``csrc/s1_dk_ring.cuh``) and kernel D
-(the k3 s2 transposed conv, ``csrc/deconv3d_k3s2.cu``) walk their rows and
-slices as ``dsmnet_tpu_torch/ops/conv3d.py`` plans them (``dk_k3_rows``,
-``dk_k3_chunks``, ``deconv_run``).  These tests hold the plans at PSMNet's,
+Kernel F (the stride-1 3x3x3 dK, ``csrc/s1_dk_ring.cuh``), kernel E (the
+3x3 2-D dK: F's ring at KD = 1) and kernel D (the k3 s2 transposed conv,
+``csrc/deconv3d_k3s2.cu``) walk their rows and slices as
+``dsmnet_tpu_torch/ops/conv3d.py`` and ``conv2d.py`` plan them
+(``dk_k3_rows``, ``dk_k3_chunks``, ``dk_rows``, ``dk_chunks``,
+``deconv_run``).  These tests hold the plans at PSMNet's,
 GCNet's and PSMNet-basic's main-path shapes and at ``chip_smoke.py``'s
 ragged edge shapes for 132 and 114 SMs, check that the wrappers pass the
 planned arguments, and run a float64 emulation of each kernel's schedule
@@ -19,7 +21,7 @@ import pytest
 import torch
 
 from dsmnet_tpu_torch import config
-from dsmnet_tpu_torch.ops import _build, conv3d
+from dsmnet_tpu_torch.ops import _build, conv2d, conv3d
 
 
 @pytest.fixture(autouse=True)
@@ -190,24 +192,32 @@ def _x_row(x, nd, d_dim, hh, w0, tw):
     return out
 
 
-def _emulate_f(x, g, sms):
+def _emulate_f(x, g, sms, kds=(0, 1, 2)):
     """Kernel F's bf16 schedule in float64: per chunk and per (kd, Co tile)
     block, the ring of NS slots (x rows oh and oh + 1, the g segment) and
     the halo row as the producer fills them, each warp's tap reading the
-    buffer the consumer picks, and the partials summed in chunk order."""
+    buffer the consumer picks, and the partials summed in chunk order.
+    ``kds=(1,)``: kernel E, the 2-D conv's x and g viewed as (N, 1, H, W,
+    C), only the centre kd's blocks, planned by conv2d.dk_rows / dk_chunks."""
     n, d, h, w, c = x.shape
     co = g.shape[-1]
-    tw, cob, _ = conv3d.DK_K3_TILES[c, co]
+    if kds == (1,):
+        assert d == 1
+        tw, cob, _ = conv2d.DK_TILE
+        rows = conv2d.dk_rows(n, h, w)
+        chunks = conv2d.dk_chunks(rows, sms)
+    else:
+        tw, cob, _ = conv3d.DK_K3_TILES[c, co]
+        rows = conv3d.dk_k3_rows(n, d, h, w, c, co)
+        chunks = conv3d.dk_k3_chunks(rows, c, co, sms)
     nseg = _cdiv(w, tw)
-    rows = conv3d.dk_k3_rows(n, d, h, w, c, co)
-    chunks = conv3d.dk_k3_chunks(rows, c, co, sms)
     lead = _NS_F - 2
     gp = torch.zeros((n, d, h, nseg * tw, co), dtype=g.dtype)
     gp[:, :, :, :w] = g
     partials = []
     for lo, hi in _ranges(rows, chunks):
         part = torch.zeros((3, 3, 3, c, co), dtype=torch.float64)
-        for kd in range(3):
+        for kd in kds:
             for o0 in range(0, co, cob):
                 ring = [None] * _NS_F
                 halo = None
@@ -331,4 +341,71 @@ def test_deconv_schedule_emulation_matches_plain_f64(shape, sms, runs):
     assert conv3d.deconv_runs(shape[1], conv3d.deconv_run(*shape[:4], sms)) == runs
     y = _emulate_d(x, k, sms)
     np.testing.assert_allclose(y.numpy(), conv3d.deconv3d_k3s2_plain(x, k).numpy(),
+                               rtol=1e-12, atol=1e-12)
+
+
+# ------------------------------------------------------------ kernel E
+
+# x shapes (N, H, W, 32): PSMNet's, GCNet's and PSMNet-basic's train steps,
+# then chip_smoke's edges
+_E_SHAPES = [(8, 192, 384, 32), (2, 192, 384, 32), (4, 192, 384, 32), (1, 10, 40, 32),
+             (2, 9, 100, 32), (1, 7, 200, 32), (2, 45, 200, 32)]
+
+
+@pytest.mark.parametrize("sms", [132, 114])
+@pytest.mark.parametrize("shape", _E_SHAPES, ids=_shape_id)
+def test_dk2_chunks_cover_every_row_once(shape, sms):
+    """Kernel E's chunks are contiguous, non-empty ranges of its rows (n,
+    segment, oh), oh fastest, that cover every cotangent position exactly
+    once; at most one chunk per block that runs at once (one block of all
+    nine taps per chunk)."""
+    n, h, w, c = shape
+    seg, cob, per_sm = conv2d.DK_TILE
+    rows = conv2d.dk_rows(n, h, w)
+    chunks = conv2d.dk_chunks(rows, sms)
+    assert 1 <= chunks <= sms * per_sm
+    ranges = _ranges(rows, chunks)
+    assert ranges[0][0] == 0 and ranges[-1][1] == rows
+    assert all(lo < hi for lo, hi in ranges)
+    nseg = _cdiv(w, seg)
+    line, oh = np.divmod(np.arange(rows), h)
+    nn, s = np.divmod(line, nseg)
+    seen = np.zeros((n, h, nseg * seg), np.uint8)
+    for j in range(seg):
+        np.add.at(seen, (nn, oh, s * seg + j), 1)
+    assert (seen[..., :w] == 1).all()
+
+
+def test_dk2_wrapper_allocates_one_partial_per_chunk(monkeypatch):
+    """In bf16 kernel E's wrapper passes the planned chunk count and
+    launch_dk allocates that many partials of 9 x 32 x 32 floats; in
+    float32 (the dk_k3.cuh tiles) one per row, at most DK_CHUNKS."""
+    calls, empties = _forced_launch(monkeypatch)
+    n, h, w, c = shape = (8, 192, 384, 32)
+    with torch.no_grad():
+        for dt in (torch.bfloat16, torch.float32):
+            x = torch.zeros(shape, dtype=dt)
+            assert tuple(conv2d.conv2d_dk_k3(x, x).shape) == (3, 3, 32, 32)
+    (n16, a16), (n32, a32) = calls
+    chunks = conv2d.dk_chunks(conv2d.dk_rows(n, h, w), 132)
+    assert n16 == n32 == "conv2d_dk_k3" and chunks == 256
+    assert a16[4] == _build.DTYPE_CODES[torch.bfloat16] and a16[5:] == (n, 1, h, w, c, 32, chunks)
+    assert a32[5:] == (n, 1, h, w, c, 32, min(_build.DK_CHUNKS, n * h))
+    assert (chunks, 9 * c * 32) in empties
+
+
+# tiny shapes: one segment and several with a ragged last one, chunks that
+# start inside an oh walk (few SMs), odd H, batch 2
+_E_EMU = [((1, 5, 40, 32), 132), ((2, 7, 100, 32), 5), ((1, 9, 200, 32), 4),
+          ((2, 3, 96, 32), 132)]
+
+
+@pytest.mark.parametrize("shape,sms", _E_EMU, ids=[f"{_shape_id(s)}_sms{m}" for s, m in _E_EMU])
+def test_dk2_schedule_emulation_matches_plain_f64(shape, sms):
+    rng = np.random.default_rng(sum(shape) + sms)
+    x = torch.from_numpy(rng.standard_normal(shape))
+    g = torch.from_numpy(rng.standard_normal(shape))
+    dk = _emulate_f(x[:, None], g[:, None], sms, kds=(1,))
+    assert not dk[0].any() and not dk[2].any()
+    np.testing.assert_allclose(dk[1].numpy(), conv2d.conv2d_dk_plain(x, g).numpy(),
                                rtol=1e-12, atol=1e-12)
