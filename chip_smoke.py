@@ -21,14 +21,15 @@
    copy, the plain version's bits.  The device time (CUDA graph replays timed with
    CUDA events) of the kernel, the plain version and one PyTorch call
    (cuDNN for the convolutions) beside the card's bound for the work;
-   also the kernel's eager wall time per call; for B-G the MB
-   their bf16 designs move from L2 into shared memory per launch, beside
-   the count for the earlier tiles (``l2_to_shared_mb``,
-   ``l2_to_shared_mb_earlier_tiles``).  Small ragged-edge shapes (chunks
-   and runs that end ragged, D = 1 and 2, odd H, W off every tile) are
-   checked, not timed.  For the stem also the whole op (tap maps + J)
-   against the op on the plain assembly, and kernel H's volume build
-   beside cuDNN's conv over that volume, which the fused stem replaces.
+   also the kernel's eager wall time per call; for A-G the MB their bf16
+   designs move from L2 into shared memory per launch, and for J the map
+   MB its blocks read, beside the count for the earlier tiles
+   (``l2_to_shared_mb``, ``l2_to_shared_mb_earlier_tiles``).  Small
+   ragged-edge shapes (chunks and runs that end ragged, D = 1 and 2, odd
+   H, W off every tile) are checked, not timed.  For the stem also the
+   whole op (tap maps + J) against the op on the plain assembly, and
+   kernel H's volume build beside cuDNN's conv over that volume, which
+   the fused stem replaces.
 3. Serving: full-width PSMNet with seeded weights and BN statistics
    calibrated by one train-mode forward: a float32 forward through the
    kernels against the plain path (TF32 off), both against float64; then
@@ -119,9 +120,9 @@ GRAD_F32_FACTOR, GRAD_F32_FLOOR_SHARE = 4.0, 0.1
 # output to bf16 (<= 2^-9 |ref|)
 CORR_SCALE_TOL, CORR_BF16_RTOL = 1e-5, 2.0 ** -8
 # the stem's assembly J sums 18 tap-map values of both signs per output in
-# f32: the same rule as I's, against the same assembly of |A| and |B|
-# (its f32 sums run in the plain version's order, so they should match it
-# to the bit, which the check reports without requiring)
+# f32: the same rule as I's, against the same assembly of |A| and |B| (its
+# grouped sums run in another order than the plain version's, so the check
+# reports, without requiring, whether its bits match)
 REQUEST_LAUNCHES = {"conv2d_k3": 8, "conv3d_k3": 12, "conv3d_k3s2": 6, "deconv3d_k3s2": 3,
                     "fused_costvol": 1}
 # launches per request of the other serving paths at 384x768, maxdisparity
@@ -379,7 +380,14 @@ def kernel_specs():
                     "serve_psmnet_basic": [((1, H2, W2, 32), (3, 3, 32, 32), 16)],
                     "train_gcnet": [((2 * Bg, H2, W2, 32), (3, 3, 32, 32), 34)],
                     "train_psmnet_basic": [((Bb, H2, W2, 32), (3, 3, 32, 32), 32)]},
-             edges=[((1, 10, 40, 32), (3, 3, 32, 32))]),
+             # A's bf16 walk (128-position row segments, ranges of rows): H =
+             # 1, 2, 3; W = 40 and 60 (less than a segment), 130 and 300 (a
+             # ragged last segment); ranges of 2 rows crossing images (4 x
+             # 97 rows, W = 60) and of 4 crossing segments and images (2 x
+             # 150 rows x 3 segments) at 132 SMs
+             edges=[((1, 10, 40, 32), (3, 3, 32, 32)), ((2, 1, 40, 32), (3, 3, 32, 32)),
+                    ((1, 2, 130, 32), (3, 3, 32, 32)), ((1, 3, 300, 32), (3, 3, 32, 32)),
+                    ((4, 97, 60, 32), (3, 3, 32, 32)), ((2, 150, 300, 32), (3, 3, 32, 32))]),
         dict(name="conv3d_k3", kind="conv", route="cuda", source="dsmnet_tpu_torch/csrc/conv3d_k3.cu",
              replaces="dsmnet_tpu/ops/conv3d_pallas.py:220", primary="train",
              kernel=conv3d.conv3d_k3, plain=conv3d.conv3d_plain, library=lib_conv3d(1),
@@ -568,7 +576,9 @@ def kernel_specs():
              flops=lambda a, b, out, *args: 18 * math.prod(out), peak_flops=PEAK_F32_FLOPS,
              paths={"serve": [(maps(1, H4, W4), maps(1, H4, W4), 1, D4, True)],
                     "train": [(maps(B, H4, W4), maps(B, H4, W4), 1, D4, True)]},
-             # D > W, odd W, W < 3, D < 3, batch 2, O != 32, unmasked
+             # D > W, odd W, W < 3, D < 3, batch 2, O != 32, unmasked; D > W
+             # + 2 over more than one chunk of columns (W = 70 at O = 32);
+             # O = 64 (chunks of 16 columns)
              edges=[(maps(1, 3, 5), maps(1, 3, 5), 12, True),
                     (maps(1, 4, 37), maps(1, 4, 37), 16, True),
                     (maps(1, 3, 2), maps(1, 3, 2), 4, True),
@@ -577,7 +587,10 @@ def kernel_specs():
                     (maps(1, 3, 40, 16), maps(1, 3, 40, 16), 10, True),
                     (maps(1, 2, 30, 12), maps(1, 2, 30, 12), 7, False),
                     (maps(1, 5, 50), maps(1, 5, 50), 20, False),
-                    (maps(1, 3, 6), maps(1, 3, 6), 11, False)]),
+                    (maps(1, 3, 6), maps(1, 3, 6), 11, False),
+                    (maps(2, 3, 70), maps(2, 3, 70), 96, True),
+                    (maps(1, 4, 50, 64), maps(1, 4, 50, 64), 24, True),
+                    (maps(2, 3, 37, 64), maps(2, 3, 37, 64), 13, False)]),
     ]
 
 
@@ -679,20 +692,53 @@ def check_edges(spec, dev, gen):
     emit({"kernel_edges": {"kernel": spec["name"], "cases": rows}})
 
 
-def staged_mb(name, a, b, sms):
-    """MB per launch that kernels B-G move from L2 into shared memory at
+def staged_mb(name, a, b, sms, args=()):
+    """MB per launch that kernels A-G move from L2 into shared memory at
     operand shapes ``a`` (x) and ``b`` (the kernel or the cotangent): input
     rows and columns with their halo, kernel columns, cotangent rows, each
     copy counted once per block that makes it; in bf16 for the
     s1_fwd_ring.cuh / s2_ring.cuh / s1_dk_ring.cuh / deconv ring designs and
     for the earlier tiles (conv_k3.cuh, dk_k3.cuh, D's output rows: their
-    f32 instantiations' design); None for the other kernels."""
+    f32 instantiations' design).  For J (``a`` a tap map, ``args`` (D,
+    mask_left)) the map bytes its blocks read from L2 into shared memory or
+    registers, for the grouped row walk and for the earlier per-tap tiles
+    (B staged over tile + D + 3 columns a block).  None for the other
+    kernels."""
     from dsmnet_tpu_torch.ops import conv2d, conv3d
 
     cdiv = lambda p, q: -(-p // q)
-    if name not in ("conv3d_k3", "conv2d_dk_k3", "conv3d_k3s2", "conv3d_dk_k3s2",
-                    "conv3d_dk_k3", "deconv3d_k3s2"):
+    if name not in ("conv2d_k3", "conv3d_k3", "conv2d_dk_k3", "conv3d_k3s2", "conv3d_dk_k3s2",
+                    "conv3d_dk_k3", "deconv3d_k3s2", "fused_costvol"):
         return None
+    if name == "conv2d_k3":
+        n, h, w, c = a
+        seg = conv2d.K2_SEGMENT
+        items = conv2d.k2_items(n, h, w)
+        # per block: its 9 c x 32 kernel rows and each run's input rows
+        # max(h0 - 1, 0) .. min(h1, h - 1), one seg + 2-column box each
+        new = sum(9 * c * 32 + (seg + 2) * c * sum(
+            min(h1, h - 1) - max(h0 - 1, 0) + 1 for _, h0, h1 in runs)
+            for runs in conv3d.k3_runs(items, h, conv2d.k2_run(items, sms))) * 2
+        # conv_k3.cuh: blocks of 4 rows x 64 columns, each its 6 input rows
+        # of 66 columns and the whole 9 c x 32 kernel
+        old = n * cdiv(h, 4) * cdiv(w, 64) * (6 * 66 * c + 9 * c * 32) * 2
+        return new / 1e6, old / 1e6
+    if name == "fused_costvol":
+        n, h, w, o9 = a
+        D = args[0]
+        taps = [(t // 3 - 1, t % 3 - 1) for t in range(9)]
+        # the in-image A taps of every column, read once in both designs
+        a_cols = sum(1 for v in range(w) for _, dw in taps if 0 <= v + dw < w)
+        # grouped walk: the in-image B taps at s = -2 .. w - 1 (u = s + dw - dd)
+        new_b = sum(1 for s in range(-2, w) for dd, dw in taps if 0 <= s + dw - dd < w)
+        # per-tap tiles: tile columns a block, B's in-image columns of
+        # [w0 - D - 1, w0 + tile + 2) staged at all 9 taps
+        tile = 256 // (o9 // 36)
+        old_b = 9 * sum(max(0, min(w, w0 + tile + 2) - max(0, w0 - D - 1))
+                        for w0 in range(0, w, tile))
+        per_col = o9 // 9 * 4
+        return (n * h * (a_cols + new_b) * per_col / 1e6,
+                n * h * (a_cols + old_b) * per_col / 1e6)
     if name == "conv2d_dk_k3":
         n, h, w, c = a
         tw, cob, _ = conv2d.DK_TILE
@@ -838,7 +884,7 @@ def check_kernel(spec, a_shape, b_shape, launches, path, dev, gen, *args):
         gflop=flops / 1e9, mbytes=nbytes / 1e6, measured_on=path,
     )
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
-    staged = staged_mb(spec["name"], a_shape, b_shape, sms)
+    staged = staged_mb(spec["name"], a_shape, b_shape, sms, args)
     if staged is not None:
         row["l2_to_shared_mb"], row["l2_to_shared_mb_earlier_tiles"] = staged
     MEASURED[key] = row
@@ -1334,9 +1380,10 @@ def check_remat(dev, name: str = "gcnet", steps: int = 3) -> None:
 def ptxas_report(log: str) -> dict:
     """Registers and spills per kernel entry from nvcc's ``-Xptxas=-v`` log:
     mangled entry name -> "N registers; X bytes spill stores; Y bytes spill
-    loads" (the ring designs of B, C, D, F (and E) and G are s1_fwd_kernel
-    (128 -> 128: s1_fwd_split_kernel), s2_fwd_kernel, deconv_ring_kernel,
-    s1_dk_kernel and s2_dk_kernel)."""
+    loads" (the ring designs of B (and A, its last template argument KH =
+    1), C, D, F (and E) and G are s1_fwd_kernel (128 -> 128:
+    s1_fwd_split_kernel), s2_fwd_kernel, deconv_ring_kernel, s1_dk_kernel
+    and s2_dk_kernel; J's grouped walk is fused_costvol_kernel)."""
     out, entry = {}, None
     for ln in log.splitlines():
         if "Compiling entry function" in ln:

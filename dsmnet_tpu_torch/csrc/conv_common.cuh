@@ -1,10 +1,10 @@
 // Shared building blocks of the port's hand-written Hopper convolution
-// kernels: the forward tiles of conv_k3.cuh (conv2d_k3.cu and the float32
+// kernels: the forward tiles of conv_k3.cuh (the float32 conv2d_k3.cu,
 // conv3d_k3.cu and conv3d_k3s2.cu), the weight gradients of dk_k3.cuh (the
 // float32 conv2d_dk_k3.cu, conv3d_dk_k3.cu and conv3d_dk_k3s2.cu), the
 // bf16 rings of s2_ring.cuh (conv3d_k3s2.cu, conv3d_dk_k3s2.cu),
 // s1_dk_ring.cuh (conv3d_dk_k3.cu, conv2d_dk_k3.cu) and s1_fwd_ring.cuh
-// (conv3d_k3.cu), and deconv3d_k3s2.cu.
+// (conv3d_k3.cu, conv2d_k3.cu), and deconv3d_k3s2.cu.
 //
 // The description below is that of conv_k3.cuh's design; the rings keep a
 // block's kernel resident or its partial in registers and walk D or H
@@ -14,8 +14,8 @@
 // (rows of the GEMM's M) and all Cout channels (N), stages the input rows
 // its taps read and the kernel slices of those taps in shared memory with
 // cp.async (zero-filled outside the volume: the convolution's padding),
-// and reduces taps x Cin (K) in f32 registers.  bf16 runs on the tensor
-// cores (ldmatrix + mma.sync m16n8k16); f32 runs the same tiles as FMAs.
+// and reduces taps x Cin (K) in f32 registers, as FMAs in the fragment
+// layout of mma.sync m16n8k16; the bf16 designs are the rings.
 //
 // Shared-memory rows are padded by 16 bytes: a row pitch that is an odd
 // multiple of 16 bytes puts the 8 rows that one ldmatrix phase reads in 8
@@ -150,33 +150,7 @@ __device__ inline void mma_bf16(float (&c)[4], const uint32_t (&a)[4], uint32_t 
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
-template <int K, int P, int PB, int NI, bool BKN>
-__device__ inline void tile_mma(float (&c)[NI][4], const bf16* a, const bf16* b) {
-  static_assert(K % 16 == 0 && NI % 2 == 0, "tile_mma takes K % 16 == 0 and pairs of n-tiles");
-  const int lane = threadIdx.x & 31;
-  // ldmatrix.x4: lanes 8j..8j+7 give the row addresses of 8x8 matrix j
-  const uint32_t a_addr = smem_u32(a + (lane & 15) * P + (lane >> 4) * 8);
-  const uint32_t b_addr =
-      BKN ? smem_u32(b + (lane & 15) * PB + (lane >> 4) * 8)
-          : smem_u32(b + ((lane & 7) + (lane >> 4) * 8) * PB + ((lane >> 3) & 1) * 8);
-#pragma unroll
-  for (int k0 = 0; k0 < K; k0 += 16) {
-    uint32_t af[4];
-    ldsm_x4(af, a_addr + k0 * 2);
-#pragma unroll
-    for (int np = 0; np < NI / 2; ++np) {
-      uint32_t bf[4];
-      if constexpr (BKN)
-        ldsm_x4_trans(bf, b_addr + (k0 * PB + np * 16) * 2);
-      else
-        ldsm_x4(bf, b_addr + (np * 16 * PB + k0) * 2);
-      mma_bf16(c[2 * np], af, bf[0], bf[1]);
-      mma_bf16(c[2 * np + 1], af, bf[2], bf[3]);
-    }
-  }
-}
-
-// f32: the same tile as FMAs, element by element, in the fragment layout.
+// The tile as FMAs, element by element, in the fragment layout.
 template <int K, int P, int PB, int NI, bool BKN>
 __device__ inline void tile_mma(float (&c)[NI][4], const float* a, const float* b) {
   const int lane = threadIdx.x & 31;
@@ -221,11 +195,12 @@ __device__ inline void store_tile(float* out, const float (&c)[NI][4], int m0, i
   }
 }
 
-// Copy rows of the f32 tile (pitch OP) to y, converting to T, 8 channels
-// per store.  row_ptr(m) is row m's address in y, or nullptr for a row
+// Copy rows of the f32 tile (pitch OP) to y (T = float), 8 channels per
+// store.  row_ptr(m) is row m's address in y, or nullptr for a row
 // outside the output.
 template <typename T, int CO, int OP, typename RowPtr>
 __device__ inline void write_rows(const float* tile, int nrows, RowPtr row_ptr) {
+  static_assert(std::is_same<T, float>::value, "the tiles write float32");
   constexpr int Q = CO / 8;
   for (int i = threadIdx.x; i < nrows * Q; i += kThreads) {
     const int m = i / Q;
@@ -234,16 +209,9 @@ __device__ inline void write_rows(const float* tile, int nrows, RowPtr row_ptr) 
     if (d == nullptr) continue;
     d += q * 8;
     const float* s = tile + m * OP + q * 8;
-    if constexpr (std::is_same<T, float>::value) {
-      float4* d4 = reinterpret_cast<float4*>(d);
-      d4[0] = make_float4(s[0], s[1], s[2], s[3]);
-      d4[1] = make_float4(s[4], s[5], s[6], s[7]);
-    } else {
-      __align__(16) bf16 tmp[8];
-#pragma unroll
-      for (int e = 0; e < 8; ++e) tmp[e] = __float2bfloat16(s[e]);
-      *reinterpret_cast<uint4*>(d) = *reinterpret_cast<const uint4*>(tmp);
-    }
+    float4* d4 = reinterpret_cast<float4*>(d);
+    d4[0] = make_float4(s[0], s[1], s[2], s[3]);
+    d4[1] = make_float4(s[4], s[5], s[6], s[7]);
   }
 }
 

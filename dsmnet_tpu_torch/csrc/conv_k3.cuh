@@ -1,6 +1,6 @@
-// The 3x3 (2-D, KD = 1) and 3x3x3 (3-D, KD = 3) convolution of kernel A
-// and of the float32 B and C (their bf16 designs are s1_fwd_ring.cuh and
-// s2_ring.cuh): stride S in every spatial dim, pad 1, no bias.
+// The 3x3 (2-D, KD = 1) and 3x3x3 (3-D, KD = 3) convolution of the float32
+// A, B and C (their bf16 designs are s1_fwd_ring.cuh and s2_ring.cuh):
+// stride S in every spatial dim, pad 1, no bias.
 // x (N, Di, Hi, Wi, C), w (KD, 3, 3, C, CO), y (N, Do, Ho, Wo, CO); a 2-D
 // conv is the case Di = Do = 1.
 //

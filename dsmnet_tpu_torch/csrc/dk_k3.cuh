@@ -77,7 +77,8 @@ __device__ __forceinline__ void dk_tile(float (&c)[Cfg::MI][Cfg::NI][4], const b
   const int lane = threadIdx.x & 31;
   // ldmatrix.x4.trans: lanes 8j..8j+7 address the 8 k-rows of matrix j,
   // whose m offset is (j & 1) * 8 and k offset (j >> 1) * 8; transposed,
-  // they give the m16 x k16 A fragment.  B as in tile_mma's k-major path.
+  // they give the m16 x k16 A fragment.  B: ldmatrix.x4.trans of its
+  // k-major rows, two n8 tiles a load.
   const int a_row = (lane & 7) + (lane >> 4) * 8;
   const int a_col = ((lane >> 3) & 1) * 8;
   const uint32_t b_addr = smem_u32(sg + (lane & 15) * Cfg::PB + (lane >> 4) * 8);

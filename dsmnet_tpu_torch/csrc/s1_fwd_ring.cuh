@@ -41,6 +41,12 @@
 // of its kd, and writes an f32 partial; s1_fwd_reduce adds the three kd
 // partials in a fixed order (kd = 0, 1, 2) and rounds to bf16: the same
 // bits on every run, no float atomics.
+//
+// Kernel A (the 3x3 2-D conv, 32 -> 32, csrc/conv2d_k3.cu) runs the same
+// walk at KH = 1: the walked dim is H, the tile one row segment of 128
+// positions (two warpgroups of 64), a slot one input row of 130 positions,
+// and kh takes kd's part: each staged row feeds the output rows h + 1, h
+// and h - 1 through its three kh tap groups of three kw taps.
 #pragma once
 
 #include "s2_ring.cuh"
@@ -48,60 +54,67 @@
 namespace dsm {
 
 // C input channels in planes of KC = min(C, 64) (one TMA box each), COB of
-// the CO output channels per block, TAPS kernel taps resident (27: the
-// walk; 9: one kd of the split), NSLOT ring slots.  A tile: RH x TM = 8 x
-// 16 output positions of one (n, d), two warpgroups of 64 (warp w owns row
-// w of the tile).  A slot: one input slice's RH + 2 rows of TM + 2
-// positions, XP planes of LB-byte lines.  The walk stages finished output
-// slices in two bf16 tiles of RH x TM lines of COB * 2 bytes (one TMA store
-// box each).
-template <int C, int CO, int COB, int TAPS, int NSLOT = 4>
+// the CO output channels per block; WALK: the walk, all 3 KT taps resident,
+// else one kd group of KT taps (the split); NSLOT ring slots; KH kernel rows
+// inside a slot (3: the 3-D conv, KT = 9 taps (kh, kw) per kd; 1: the 2-D
+// conv, KT = 3 taps kw per kh, kh walked as kd).  A tile: RH x TM output
+// positions of one (n, d), 8 x 16 at KH = 3 (warp w owns row w), 1 x 128
+// at KH = 1 (warp w owns positions 16 w ..), two warpgroups of 64.  A slot:
+// one input slice's RH + KH - 1 rows of TM + 2 positions, XP planes of
+// LB-byte lines.  The walk stages finished output slices in two bf16 tiles
+// of RH x TM lines of COB * 2 bytes (one TMA store box each).
+template <int C, int CO, int COB, bool WALK, int NSLOT = 4, int KH = 3>
 struct S1Fwd {
   static constexpr int kC = C, kCO = CO, kCOB = COB;
-  static constexpr int RH = 8, TM = 16;
+  static constexpr int KT = 3 * KH;                       // taps of a kd group
+  static constexpr int TAPS = WALK ? 3 * KT : KT;         // resident taps
+  static constexpr int RH = KH == 3 ? 8 : 1, TM = 128 / RH;
   static constexpr int NT = 256;                          // 2 warpgroups
   static constexpr int NCOB = CO / COB;                   // Co tiles
   static constexpr int KC = C < 64 ? C : 64;              // channels of an x plane
   static constexpr int XP = C / KC;                       // planes of a slot
   static constexpr int LB = KC * 2;                       // bytes of a staged line
-  static constexpr int ROWS = RH + 2, COLS = TM + 2;      // with the halo
+  static constexpr int ROWS = RH + KH - 1, COLS = TM + 2; // with the halo
   static constexpr int PLANE_BYTES = ROWS * COLS * LB;    // one TMA box
   static constexpr int PLANE_PITCH = (PLANE_BYTES + 1023) / 1024 * 1024;
   static constexpr int SLOT = XP * PLANE_PITCH;
-  static constexpr int NS = TAPS == 27 ? NSLOT : 1;       // ring slots
+  static constexpr int NS = WALK ? NSLOT : 1;             // ring slots
   static constexpr int KS = KC / 16;                      // k16 steps of a tap and plane
   static constexpr int NI = COB / 8;                      // n8 tiles of an accumulator set
   static constexpr int W_BYTES = TAPS * C * COB * 2;      // the resident kernel rows
   static constexpr int OUT_TILE = RH * TM * COB * 2;       // a staged output slice
-  static constexpr int NOUT = TAPS == 27 ? 2 : 0;          // staged output tiles
+  static constexpr int NOUT = WALK ? 2 : 0;                // staged output tiles
   static constexpr size_t SMEM =
       static_cast<size_t>(W_BYTES) + NS * SLOT + NOUT * OUT_TILE + 64;  // + mbarriers
-  static_assert(RH * TM == 16 * NT / 32, "a warp owns one row of 16 positions");
+  static_assert(RH * TM == 16 * NT / 32, "a warp owns 16 positions of one row");
+  static_assert(KH == 3 || KH == 1, "a 3x3x3 or a 3x3 kernel");
   static_assert(C % 16 == 0 && (C <= 64 || C % 64 == 0) && (COB == 32 || COB == 64) &&
-                    CO % COB == 0 && W_BYTES % 1024 == 0,
+                    CO % COB == 0 && KT * C * COB * 2 % 1024 == 0,
                 "widths");
   static_assert(SMEM <= 232448, "shared memory");
 };
 
 // One staged input slice (the slot at `slot`) into the accumulators: for
-// every plane p and tap (kh, kw), the warp's A fragment is the slot's
-// plane p shifted by kh rows and kw positions, and each kd in MASK (bit
-// kd) adds it times the kernel rows (kd, kh, kw, p KC ..) at wk[kd] into
-// acc kd: a0 (output di + 1), a1 (output di), a2 (output di - 1).  Each
-// (plane, tap) unit is one group of asynchronous wgmmas; the next unit's A
-// fragments are loaded while the current one runs, into a third buffer, so
-// a wait only covers the unit before.
+// every plane p and tap t = (kh, kw) of a kd group (kh = 0 at KH = 1), the
+// warp's A fragment is the slot's plane p shifted by kh rows and kw
+// positions, and each kd in MASK (bit kd) adds it times the kernel rows
+// (kd, t, p KC ..) at wk[kd] into acc kd: a0 (output di + 1), a1 (output
+// di), a2 (output di - 1).  Each (plane, tap) unit is one group of
+// asynchronous wgmmas; the next unit's A fragments are loaded while the
+// current one runs, into a third buffer, so a wait only covers the unit
+// before.
 template <typename Cfg, int MASK>
 __device__ __forceinline__ void s1_fwd_slice(float (&a0)[Cfg::NI][4], float (&a1)[Cfg::NI][4],
                                              float (&a2)[Cfg::NI][4], uint32_t slot,
                                              uint32_t wk0, uint32_t wk1, uint32_t wk2) {
-  constexpr int KS = Cfg::KS, NU = Cfg::XP * 9;
+  constexpr int KS = Cfg::KS, KT = Cfg::KT, NU = Cfg::XP * KT;
   constexpr int ROW_B = Cfg::kCOB * 2;  // bytes of a resident kernel row
   const int warp = threadIdx.x / 32, lane = threadIdx.x & 31;
-  // lane's A row: position (warp, lane & 15) of the tile, at kh = kw = 0
-  const uint32_t a_line = slot + (warp * Cfg::COLS + (lane & 15)) * Cfg::LB;
+  // lane's A row: position (r, j + (lane & 15)) of the tile, at kh = kw = 0
+  const int r = warp * 16 / Cfg::TM, j = warp * 16 - r * Cfg::TM;
+  const uint32_t a_line = slot + (r * Cfg::COLS + j + (lane & 15)) * Cfg::LB;
   auto load = [&](uint32_t (&a)[KS][4], int u) {
-    const int p = u / 9, t = u % 9, kh = t / 3, kw = t % 3;
+    const int p = u / KT, t = u % KT, kh = t / 3, kw = t % 3;
     const uint32_t line = a_line + p * Cfg::PLANE_PITCH + (kh * Cfg::COLS + kw) * Cfg::LB;
 #pragma unroll
     for (int ks = 0; ks < KS; ++ks) {
@@ -111,7 +124,7 @@ __device__ __forceinline__ void s1_fwd_slice(float (&a0)[Cfg::NI][4], float (&a1
     }
   };
   auto issue = [&](const uint32_t (&a)[KS][4], int u) {
-    const int p = u / 9, t = u % 9;
+    const int p = u / KT, t = u % KT;
     const uint32_t row = (t * Cfg::kC + p * Cfg::KC) * ROW_B;
     wgmma_fence();
     // k16 step outermost: consecutive wgmmas write different accumulators
@@ -147,14 +160,15 @@ __device__ __forceinline__ void s1_fwd_slice(float (&a0)[Cfg::NI][4], float (&a1
 // The accumulator set c (an output slice of the tile) into the staging
 // tile at `tile` in bf16: line r TM + j holds position (r, j) of the tile,
 // its COB channels (LBO bytes, the TMA's swizzle of that width).  Warp w
-// writes row w, its lanes columns g and g + 8 (the wgmma accumulator
-// layout); the swizzle puts the eight lines of a store in eight bank groups.
+// writes its 16 positions, lines 16 w .., its lanes g and g + 8 (the wgmma
+// accumulator layout); the swizzle puts the eight lines of a store in
+// eight bank groups.
 template <typename Cfg>
 __device__ __forceinline__ void s1_fwd_stage_out(const float (&c)[Cfg::NI][4], uint32_t tile) {
   constexpr int LBO = Cfg::kCOB * 2;
   const int warp = threadIdx.x / 32, lane = threadIdx.x & 31;
   const int g = lane >> 2, tq = lane & 3;
-  const uint32_t l0 = tile + (warp * Cfg::TM + g) * LBO, l1 = l0 + 8 * LBO;
+  const uint32_t l0 = tile + (warp * 16 + g) * LBO, l1 = l0 + 8 * LBO;
 #pragma unroll
   for (int ni = 0; ni < Cfg::NI; ++ni) {
     st_shared_u32(swz_chunk<LBO>(l0, ni) + 4 * tq, pack_bf16x2(c[ni][0], c[ni][1]));
@@ -163,31 +177,32 @@ __device__ __forceinline__ void s1_fwd_stage_out(const float (&c)[Cfg::NI][4], u
   asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");  // the TMA store reads it
 }
 
-// The kernel rows of tap group kd (its nine taps, C rows each) and Co tile
-// cob into shared memory at `dst`: one TMA box of the (CO, C, 9, 3) view of
+// The kernel rows of tap group kd (its KT taps, C rows each) and Co tile
+// cob into shared memory at `dst`: one TMA box of the (CO, C, KT, 3) view of
 // the kernel, completing on `bar`.  Its COB * 2-byte rows land swizzled in
 // their width, which is w_swz's layout (row r's chunk q at q ^ (r & 7) for
 // 128-byte rows, q ^ ((r >> 1) & 3) for 64-byte ones): wgmma's B.
 template <typename Cfg>
 __device__ __forceinline__ void s1_fwd_weights(uint32_t dst, const CUtensorMap* wmap, int kd,
                                                int cob, uint32_t bar) {
-  mbar_arrive_tx(bar, 9 * Cfg::kC * Cfg::kCOB * 2);
+  mbar_arrive_tx(bar, Cfg::KT * Cfg::kC * Cfg::kCOB * 2);
   tma_load_4d(dst, wmap, cob * Cfg::kCOB, 0, 0, kd, bar);
 }
 
 // grid (NCOB x blocks); block b of Co tile cob (b = blockIdx.x / NCOB)
 // takes the work items [b per, (b + 1) per) of the `items` items (n, h
 // tile, w tile, output slice d), d fastest.  `xmap`: x as (C, W, H, N D),
-// box (KC, TM + 2, RH + 2, 1), lines swizzled in their width; `wmap`: the
-// kernel as (CO, C, 9, 3), box (COB, C, 9, 1); `ymap`: y as (CO, W, H, N
-// D), box (COB, TM, RH, 1).
-template <int C, int CO, int COB, int NSLOT, int MINB>
+// box (KC, TM + 2, RH + KH - 1, 1), lines swizzled in their width; `wmap`:
+// the kernel as (CO, C, KT, 3), box (COB, C, KT, 1); `ymap`: y as (CO, W,
+// H, N D), box (COB, TM, RH, 1).  At KH = 1 (kernel A) D is the 2-D
+// conv's H and H is 1.
+template <int C, int CO, int COB, int NSLOT, int MINB, int KH>
 __global__ void __launch_bounds__(256, MINB)
     s1_fwd_kernel(const __grid_constant__ CUtensorMap xmap,
                   const __grid_constant__ CUtensorMap wmap,
                   const __grid_constant__ CUtensorMap ymap, int D, int H, int W, int items,
                   int per) {
-  using Cfg = S1Fwd<C, CO, COB, 27, NSLOT>;
+  using Cfg = S1Fwd<C, CO, COB, true, NSLOT, KH>;
   constexpr int NS = Cfg::NS, RH = Cfg::RH, TM = Cfg::TM, NI = Cfg::NI;
   extern __shared__ __align__(1024) unsigned char smem[];
   const uint32_t w_base = smem_u32(smem);
@@ -219,8 +234,9 @@ __global__ void __launch_bounds__(256, MINB)
     }
     return false;
   };
-  // slice k into slot k % NS: one TMA box per plane, rows h0 - 1 .. h0 + RH
-  // and columns w0 - 1 .. w0 + TM of input slice di, zero outside the volume
+  // slice k into slot k % NS: one TMA box per plane, rows h0 - KH / 2 .. h0
+  // + RH + KH / 2 - 1 and columns w0 - 1 .. w0 + TM of input slice di, zero
+  // outside the volume
   auto issue = [&](int k) {
     int tile, di;
     if (!locate(k, tile, di)) return;
@@ -229,8 +245,8 @@ __global__ void __launch_bounds__(256, MINB)
     mbar_arrive_tx(bar, Cfg::XP * Cfg::PLANE_BYTES);
 #pragma unroll
     for (int p = 0; p < Cfg::XP; ++p)
-      tma_load_4d(dst + p * Cfg::PLANE_PITCH, &xmap, p * Cfg::KC, tw * TM - 1, th * RH - 1,
-                  n * D + di, bar);
+      tma_load_4d(dst + p * Cfg::PLANE_PITCH, &xmap, p * Cfg::KC, tw * TM - 1,
+                  th * RH - KH / 2, n * D + di, bar);
   };
   if (threadIdx.x == 0) {
     for (int s = 0; s < NS + 3; ++s) mbar_init(s_bar + s * 8, 1);
@@ -240,15 +256,16 @@ __global__ void __launch_bounds__(256, MINB)
   // the first slice and the kernel rows first: a run's first slice needs kd
   // = 0 (or, at d0 = 0, kd = 0 and 1), and each kd is waited for at its
   // first use, so the rest of the kernel arrives while the first taps run
+  constexpr int KD_BYTES = Cfg::KT * C * COB * 2;  // the kernel rows of one kd
   if (threadIdx.x == 0) {
     issue(0);
     for (int kd = 0; kd < 3; ++kd)
-      s1_fwd_weights<Cfg>(w_base + kd * 9 * C * COB * 2, &wmap, kd, cob, w_bar + kd * 8);
+      s1_fwd_weights<Cfg>(w_base + kd * KD_BYTES, &wmap, kd, cob, w_bar + kd * 8);
     for (int k = 1; k < NS; ++k) issue(k);
   }
 
   // the kernel rows of kd = 0, 1, 2
-  const uint32_t wk0 = w_base, wk1 = w_base + 9 * C * COB * 2, wk2 = w_base + 18 * C * COB * 2;
+  const uint32_t wk0 = w_base, wk1 = w_base + KD_BYTES, wk2 = w_base + 2 * KD_BYTES;
   float a0[NI][4], a1[NI][4], a2[NI][4];
   int k = 0;
   int w_ready = 0;  // the kd whose kernel rows have arrived (bit kd)
@@ -335,7 +352,7 @@ __global__ void __launch_bounds__(256, 1)
     s1_fwd_split_kernel(const __grid_constant__ CUtensorMap xmap,
                         const __grid_constant__ CUtensorMap wmap, float* __restrict__ ws, int D,
                         int H, int W, long long total) {
-  using Cfg = S1Fwd<C, CO, COB, 9>;
+  using Cfg = S1Fwd<C, CO, COB, false>;
   constexpr int RH = Cfg::RH, TM = Cfg::TM, NI = Cfg::NI;
   extern __shared__ __align__(1024) unsigned char smem[];
   const uint32_t w_base = smem_u32(smem);
@@ -396,9 +413,10 @@ static __global__ void s1_fwd_reduce(const float* __restrict__ ws, bf16* __restr
   *reinterpret_cast<uint32_t*>(y + i) = pack_bf16x2((p0.x + p1.x) + p2.x, (p0.y + p1.y) + p2.y);
 }
 
-// x as (C, W, H, N D) with boxes of (KC, TM + 2, RH + 2, 1); the kernel w
-// (3, 3, 3, C, CO) as (CO, C, 9, 3) with boxes of (COB, C, 9, 1); y (the
-// walk's output) as (CO, W, H, N D) with boxes of (COB, TM, RH, 1)
+// x as (C, W, H, N D) with boxes of (KC, TM + 2, RH + KH - 1, 1); the
+// kernel w (3, 3, 3, C, CO) (KH = 1: (3, 3, C, CO)) as (CO, C, KT, 3) with
+// boxes of (COB, C, KT, 1); y (the walk's output) as (CO, W, H, N D) with
+// boxes of (COB, TM, RH, 1)
 template <typename Cfg>
 inline bool s1_fwd_maps(CUtensorMap* xmap, CUtensorMap* wmap, CUtensorMap* ymap, const void* x,
                         const void* w, const void* y, int N, int D, int H, int W) {
@@ -409,9 +427,10 @@ inline bool s1_fwd_maps(CUtensorMap* xmap, CUtensorMap* wmap, CUtensorMap* ymap,
                                  static_cast<cuuint64_t>(W) * C * 2,
                                  static_cast<cuuint64_t>(H) * W * C * 2};
   const cuuint32_t box[4] = {Cfg::KC, Cfg::COLS, Cfg::ROWS, 1};
-  const cuuint64_t wdims[4] = {CO, C, 9, 3};
-  const cuuint64_t wstrides[3] = {CO * 2, C * CO * 2, 9 * C * CO * 2};
-  const cuuint32_t wbox[4] = {Cfg::kCOB, C, 9, 1};
+  constexpr int KT = Cfg::KT;
+  const cuuint64_t wdims[4] = {CO, C, KT, 3};
+  const cuuint64_t wstrides[3] = {CO * 2, C * CO * 2, KT * C * CO * 2};
+  const cuuint32_t wbox[4] = {Cfg::kCOB, C, KT, 1};
   const cuuint64_t ydims[4] = {CO, dims[1], dims[2], dims[3]};
   const cuuint64_t ystrides[3] = {static_cast<cuuint64_t>(CO) * 2,
                                   static_cast<cuuint64_t>(W) * CO * 2,
@@ -424,12 +443,13 @@ inline bool s1_fwd_maps(CUtensorMap* xmap, CUtensorMap* wmap, CUtensorMap* ymap,
 }
 
 // x (N, D, H, W, C) bf16, w (3, 3, 3, C, CO), y (N, D, H, W, CO); `per`
-// work items per block (ops/conv3d.py k3_run)
-template <int C, int CO, int COB, int NSLOT, int MINB>
+// work items per block (ops/conv3d.py k3_run).  KH = 1: x (N, D, 1, W, C),
+// w (3, 3, C, CO), the 2-D conv of (N, D, W, C) (ops/conv2d.py k2_run).
+template <int C, int CO, int COB, int NSLOT, int MINB, int KH = 3>
 cudaError_t launch_s1_fwd(const void* x, const void* w, void* y, int N, int D, int H, int W,
                           int per, cudaStream_t stream) {
-  using Cfg = S1Fwd<C, CO, COB, 27, NSLOT>;
-  auto kernel = s1_fwd_kernel<C, CO, COB, NSLOT, MINB>;
+  using Cfg = S1Fwd<C, CO, COB, true, NSLOT, KH>;
+  auto kernel = s1_fwd_kernel<C, CO, COB, NSLOT, MINB, KH>;
   static std::atomic<uint32_t> smem_set{0};
   cudaError_t err = set_smem_once(kernel, Cfg::SMEM, smem_set);
   if (err != cudaSuccess) return err;
@@ -450,7 +470,7 @@ cudaError_t launch_s1_fwd(const void* x, const void* w, void* y, int N, int D, i
 template <int C, int CO, int COB>
 cudaError_t launch_s1_fwd_split(const void* x, const void* w, void* y, void* ws, int N, int D,
                                 int H, int W, cudaStream_t stream) {
-  using Cfg = S1Fwd<C, CO, COB, 9>;
+  using Cfg = S1Fwd<C, CO, COB, false>;
   auto kernel = s1_fwd_split_kernel<C, CO, COB>;
   static std::atomic<uint32_t> smem_set{0};
   cudaError_t err = set_smem_once(kernel, Cfg::SMEM, smem_set);

@@ -37,15 +37,15 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 
 # kernel name -> (C entry point, device pointers, int arguments).  Forward
 # conv kernels take (x, w, y, dtype, N, [D,] H, W, C, Co), kernels C and D
-# also the D-slices per block of their bf16 walks, kernel B a workspace
-# after y (its bf16 128 -> 128 partials) and the work items per block of
-# its bf16 walk; the
+# also the D-slices per block of their bf16 walks, kernels A and B the work
+# items per block of theirs, B a workspace after y (its bf16 128 -> 128
+# partials); the
 # weight-gradient kernels take (x, g, dk, workspace, dtype, N, D, H, W, C,
 # Co, chunks); the cost volume takes (fL, fR, out, dtype, N, H, W, F, D,
 # mask_left), the correlation (fL, fR, out, dtype, N, H, W, C, D, stride),
 # the stem's assembly (A, B, out, dtype of out, N, H, W, O, D, mask_left).
 ENTRY_POINTS = {
-    "conv2d_k3": ("dsm_conv2d_k3", 3, 6),
+    "conv2d_k3": ("dsm_conv2d_k3", 3, 7),
     "conv3d_k3": ("dsm_conv3d_k3", 4, 8),
     "conv3d_k3s2": ("dsm_conv3d_k3s2", 3, 8),
     "deconv3d_k3s2": ("dsm_deconv3d_k3s2", 3, 8),

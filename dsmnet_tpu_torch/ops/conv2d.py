@@ -6,7 +6,10 @@ C == Co == 32 goes to the hand-written kernels, through the autograd
 ``Function`` ``_Conv2dK3`` (the JAX ``custom_vjp``, ``conv2d.py:38-65``):
 
   * forward: kernel A (``csrc/conv2d_k3.cu``, replaces
-    ``conv2d_fwd_pallas_folded``);
+    ``conv2d_fwd_pallas_folded``); in bf16 kernel B's walk
+    (``csrc/s1_fwd_ring.cuh``) at KH = 1, over contiguous ranges of work
+    items (n, row segment, output row) planned by :func:`k2_items` and
+    :func:`k2_run`;
   * dx: kernel A on the cotangent with the flipped, channel-swapped kernel;
   * dK: kernel E (``csrc/conv2d_dk_k3.cu``, replaces
     ``conv2d_dk_pallas_folded``), float32, cast to the kernel's dtype; in
@@ -27,6 +30,29 @@ from . import _build
 from .conv3d import DK_K3_TILES, _cdiv
 
 __all__ = ["conv2d_same", "conv2d_k3", "conv2d_k3_plain", "conv2d_dk_k3", "conv2d_dk_plain"]
+
+# Kernel A's bf16 walk (csrc/conv2d_k3.cu on csrc/s1_fwd_ring.cuh at KH =
+# 1): output positions of a row segment (two warpgroups of 64) and blocks
+# resident per SM
+K2_SEGMENT = 128
+K2_BLOCKS_PER_SM = 2
+
+
+def k2_items(n: int, h: int, w: int) -> int:
+    """Work items (n, row segment, output row h), h fastest, of kernel A's
+    bf16 walk."""
+    return n * _cdiv(w, K2_SEGMENT) * h
+
+
+def k2_run(items: int, sms: int) -> int:
+    """Work items per block of kernel A's bf16 walk: contiguous ranges, one
+    wave of K2_BLOCKS_PER_SM blocks per SM on ``sms`` SMs.  A block stages
+    its kernel once and each run's input rows h0 - 1 .. h1 once, so the
+    longest ranges stage the least.  A range is cut into runs of one
+    segment's consecutive rows as B's are (``conv3d.k3_runs``, rows for
+    slices)."""
+    return _cdiv(items, max(1, sms * K2_BLOCKS_PER_SM))
+
 
 # Kernel E's bf16 ring (csrc/conv2d_dk_k3.cu): kernel F's 32 -> 32 ring at
 # KD = 1, so its segment positions, Co tile and blocks resident per SM
@@ -84,8 +110,11 @@ def conv2d_k3(x: torch.Tensor, k: torch.Tensor) -> torch.Tensor:
                          f"{tuple(x.shape)}, {tuple(k.shape)}")
     n, h, w, c = x.shape
     y = torch.empty((n, h, w, 32), dtype=x.dtype, device=x.device)
+    # the float32 tiles (conv_k3.cuh) take no range
+    per = k2_run(k2_items(n, h, w), _build.sm_count(x.device.index)) \
+        if x.dtype == torch.bfloat16 else 0
     _build.launch("conv2d_k3", x.device, x.data_ptr(), k.data_ptr(), y.data_ptr(),
-                  _build.DTYPE_CODES[x.dtype], n, h, w, c, 32)
+                  _build.DTYPE_CODES[x.dtype], n, h, w, c, 32, per)
     return y
 
 

@@ -17,7 +17,12 @@ The forward is the JAX package's Pallas path (``_fused_pallas_fwd``
 float32 (``tap_maps``), and on a CUDA tensor kernel J
 (``csrc/fused_costvol.cu``, replaces ``_fused_pallas_fwd`` and its
 boundary patches) assembles them, summing in float32 and rounding once to
-the inputs' dtype.  Its plain version, taken for CPU tensors, is the
+the inputs' dtype.  Like the TPU kernel it groups the taps by e = dw - dd:
+in the interior an output is one of five suffix sums of the left groups
+plus G[w - d], a 5-tap sum of the grouped right maps; slices 0 and D - 1
+are summed tap by tap.  A block owns one (n, h) row in chunks of
+:func:`stem_columns` columns, G in a ring of :func:`stem_ring` columns.
+Its plain version, taken for CPU tensors, is the
 exact per-tap ``_assemble_jnp`` (:95); the XLA-specific skew and grouped
 assemblies compute the same function and are not ported.  JAX keeps its
 XLA assembly by default, measured on a TPU; the port launches its kernel
@@ -45,6 +50,30 @@ __all__ = ["cost_volume_conv3x3", "cost_volume_conv3x3_reference", "cost_volume_
            "assemble_plain", "tap_maps"]
 
 _TAPS = [(dd, dw) for dd in (-1, 0, 1) for dw in (-1, 0, 1)]
+
+# Kernel J's block (csrc/fused_costvol.cu): threads, and the H100's shared
+# memory a block may take
+STEM_THREADS = 256
+STEM_MAX_SMEM = 232448
+
+
+def stem_columns(o: int) -> int:
+    """Columns of a chunk of kernel J's row walk: one thread per column and
+    four channels."""
+    return STEM_THREADS // (o // 4)
+
+
+def stem_ring(d: int, o: int) -> int:
+    """Columns of kernel J's rings of G and of slice D - 1's right halves:
+    D + 2 chunks, so no thread overwrites a column that a thread of the
+    chunk before still reads."""
+    return d + 2 * stem_columns(o)
+
+
+def stem_smem(d: int, o: int) -> int:
+    """Bytes of shared memory of kernel J's block: the two rings and the
+    D columns of GW, O floats each."""
+    return (2 * stem_ring(d, o) + d) * o * 4
 
 
 def cost_volume_conv3x3_reference(fL, fR, kernel, D: int, mask_left: bool = True):
@@ -122,10 +151,12 @@ def cost_volume_conv3x3_kernel(a, b, D: int, mask_left: bool, dtype):
         return assemble_plain(a, b, D, mask_left, dtype)
     _build.require_cuda("fused_costvol", a, b)
     if (a.dtype != torch.float32 or dtype not in _build.DTYPE_CODES or a.dim() != 4
-            or b.shape != a.shape or a.shape[-1] % 36 or D < 1):
+            or b.shape != a.shape or a.shape[-1] % 36 or D < 1
+            or stem_smem(D, a.shape[-1] // 9) > STEM_MAX_SMEM):
         raise ValueError(f"fused_costvol takes float32 maps (N,H,W,9*O) of one shape, O a "
-                         f"multiple of 4, D >= 1, and writes bf16 or float32; got "
-                         f"{tuple(a.shape)} {a.dtype}, {tuple(b.shape)}, D={D}, out {dtype}")
+                         f"multiple of 4, D >= 1 with its rings in shared memory, and writes "
+                         f"bf16 or float32; got {tuple(a.shape)} {a.dtype}, {tuple(b.shape)}, "
+                         f"D={D}, out {dtype}")
     n, h, w, o9 = a.shape
     out = torch.empty((n, D, h, w, o9 // 9), dtype=dtype, device=a.device)
     _build.launch("fused_costvol", a.device, a.data_ptr(), b.data_ptr(), out.data_ptr(),
