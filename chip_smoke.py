@@ -2,6 +2,11 @@
 """Smoke run of the PyTorch/CUDA port (dsmnet_tpu_torch) on one NVIDIA GPU.
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --only corr1d,corr1d_vjp --profile-train dispnetcorr,iresnet
+
+The second form runs only the named kernels' checks and timings (step 2)
+and one profiled bf16 train step of each named model, and prints no ``ok``
+line; copied beside another commit's package it measures that commit.
 
 1. Builds the hand-written CUDA kernels from ``dsmnet_tpu_torch/csrc`` and
    prints the card, the versions and the build time.
@@ -13,12 +18,14 @@
    DispNetC and iResNet (the correlation I) at the same size, the fused
    stem's assembly J on PSMNet's serving and train-step tap maps, and
    every kernel at every shape of the train steps of GCNet (F at
-   128 -> 128 for l31/l32 among them), PSMNet-basic, DispNetC and iResNet.
+   128 -> 128 for l31/l32 among them), PSMNet-basic, DispNetC and iResNet
+   (I and I's VJP kernel, which has no TPU counterpart: JAX's is jnp).
    Each shape's bf16 kernel and its f32 instantiation are held against
    the plain PyTorch version computed in float32 from the same bf16 inputs
    with TF32 off (J: from the same float32 tap maps, written in bf16 and
-   in f32); E-G must also give the same bits on two launches, and H, a
-   copy, the plain version's bits.  The device time (CUDA graph replays timed with
+   in f32; the VJP against the plain VJP summed in float32); E-G and the
+   VJP must also give the same bits on two launches, and H, a copy, the
+   plain version's bits.  The device time (CUDA graph replays timed with
    CUDA events) of the kernel, the plain version and one PyTorch call
    (cuDNN for the convolutions) beside the card's bound for the work;
    also the kernel's eager wall time per call; for A-G the MB their bf16
@@ -56,11 +63,14 @@
    requests, each with the launch counts of SERVE_LAUNCHES; then one
    profiled request each.
 8. Training PSMNet-basic, DispNet, DispNetC and iResNet as in 5 at batch 4
-   for 4 steps each (``train_*_bf16``), unprofiled.  Each path's counted
-   launches must equal the launches of its rows in 2.
+   for 4 steps each (``train_*_bf16``); DispNetC and iResNet then profiled
+   for one step, with the device time and launches under the correlation's
+   backward (``corr_backward``).  Each path's counted launches must equal
+   the launches of its rows in 2.
 9. The script's command time, one ``{"kernels": [...]}`` line (launches
    and times on each kernel's first path, "primary": the train step for
-   A-G and J, GCNet's request for H, DispNetC's for I; and per path), the card's
+   A-G and J, GCNet's request for H, DispNetC's for I, iResNet's step for
+   I's VJP; and per path), the card's
    name and power limit, and last the ``{"ok": true, ...}`` line.
 
 Any failed check raises: the script exits non-zero and prints no result.
@@ -156,7 +166,7 @@ GCNET_F32_H, GCNET_F32_W, GCNET_F32_MAXDISP = 192, 384, 96
 # PSMNet-basic: the tower once per view (8 A convs each) forward and dx and
 # their dK, its eleven B convs forward and dx and their dK, the volume;
 # DispNet: no kernel (JAX runs no Pallas kernel in it); DispNetC and
-# iResNet: the correlations' forward (their backward is plain, as JAX's)
+# iResNet: the correlations' forward (I) and their VJP (JAX's is jnp)
 TRAIN_LAUNCHES = {
     "psmnet": {"conv2d_k3": 16, "conv3d_k3": 24, "conv3d_k3s2": 9, "deconv3d_k3s2": 6,
                "conv2d_dk_k3": 8, "conv3d_dk_k3": 12, "conv3d_dk_k3s2": 9, "fused_costvol": 1},
@@ -165,8 +175,8 @@ TRAIN_LAUNCHES = {
     "psmnet_basic": {"conv2d_k3": 32, "conv2d_dk_k3": 16, "conv3d_k3": 22, "conv3d_dk_k3": 11,
                      "cost_volume": 1},
     "dispnet": {},
-    "dispnetcorr": {"corr1d": 1},
-    "iresnet": {"corr1d": 2},
+    "dispnetcorr": {"corr1d": 1, "corr1d_vjp": 1},
+    "iresnet": {"corr1d": 2, "corr1d_vjp": 2},
 }
 # GCNet with remat: the backward recomputes each 3-D stage's forward
 # kernels (B 10, C 3, D 1) and the volume inside the two stages that read
@@ -261,8 +271,10 @@ def kernel_specs():
     entry in the ``{"kernels": ...}`` line.  A conv kernel (kind "conv")
     takes (x, kernel); a weight-gradient kernel (kind "dk") (x, cotangent);
     the volume (kind "copy") and the correlation (kind "corr") (fL, fR,
-    *args); the stem's assembly (kind "stem") the float32 tap maps (A, B,
-    D, mask_left[, output dtype, bf16 by default])."""
+    *args); the correlation's VJP (kind "corr_vjp") (fL, fR, g, stride),
+    its rows naming g's shape; the stem's assembly (kind "stem") the
+    float32 tap maps (A, B, D, mask_left[, output dtype, bf16 by
+    default])."""
     from dsmnet_tpu_torch.ops import conv2d, conv3d, corr, cost_volume, fused_costvol
 
     D4, H2, W2, H4, W4 = MAXDISP // 4, H // 2, W // 2, H // 4, W // 4
@@ -330,6 +342,20 @@ def kernel_specs():
         view = view[..., ::stride]  # (N, H, W, C, D), shift D-1-e at index e
         return lambda: torch.einsum("nhwc,nhwce->nhwe", fL, view).flip(-1)
 
+    def lib_corr1d_vjp(fL, fR, g, stride):
+        """Two torch.einsum, the forward's over the unfolded padded fR against
+        the flipped g (dfL), and one over fL padded by (D-1) S columns on the
+        right, unfolded, against g read along its band, g[u + d S, d], as a
+        strided view of g padded likewise (dfR)."""
+        n, h, w, _ = fL.shape
+        D, p = g.shape[-1], (g.shape[-1] - 1) * stride
+        view_r = F.pad(fR, (0, 0, p, 0)).unfold(2, p + 1, 1)[..., ::stride]
+        view_l = F.pad(fL, (0, 0, 0, p)).unfold(2, p + 1, 1)[..., ::stride]
+        gp = F.pad(g, (0, 0, 0, p))
+        g_band = gp.as_strided((n, h, w, D), (gp.stride(0), gp.stride(1), D, stride * D + 1))
+        return lambda: (torch.einsum("nhwe,nhwce->nhwc", g.flip(-1), view_r),
+                        torch.einsum("nhwd,nhwcd->nhwc", g_band, view_l))
+
     def lib_stem_conv(a, b, D, mask_left):
         """cuDNN's 3-D conv (bf16, channels-last) over the (N, D, H, W, 64)
         volume that kernel H builds from 32-channel features: the work the
@@ -361,6 +387,27 @@ def kernel_specs():
         # only the products that land inside the image: sum_d (W - d S)+
         n, h, w, c = x
         return 2 * n * h * c * sum(max(0, w - d * stride) for d in range(D))
+
+    # the correlation's rows and edges: (fL, fR, launches, D, stride); its
+    # VJP's the same with g's shape for D
+    corr_paths = {
+        "serve_dispnetc": [((1, H4, W4, 128), (1, H4, W4, 128), 1, 41, 1)],
+        # iResNet: conv2 at 1/4 (D = 81); the shared projection of conv1 at
+        # 1/2 (D = 41, stride 2)
+        "serve_iresnet": [((1, H4, W4, 128), (1, H4, W4, 128), 1, 81, 1),
+                          ((1, H2, W2, 64), (1, H2, W2, 64), 1, 41, 2)],
+        "train_dispnetc": [((Bc, H4, W4, 128), (Bc, H4, W4, 128), 1, 41, 1)],
+        "train_iresnet": [((Bi, H4, W4, 128), (Bi, H4, W4, 128), 1, 81, 1),
+                          ((Bi, H2, W2, 64), (Bi, H2, W2, 64), 1, 41, 2)]}
+    # W not a multiple of the 64-column tile (65 and 130: one past a tile),
+    # W < 64, D S >= W (stride 1 and 2), stride 2 at C = 32, batch 2 with odd
+    # H, C = 24 (staged as 32, zeros above C), D = 1 and 3, stride 3 (I's
+    # kernel for a stride other than 1 and 2)
+    corr_edges = [((2, 5, 100, 128), 41, 1), ((1, 3, 20, 64), 41, 1), ((1, 4, 70, 128), 41, 2),
+                  ((1, 3, 33, 32), 20, 2), ((1, 2, 65, 128), 41, 1), ((2, 3, 130, 64), 81, 1),
+                  ((1, 3, 130, 128), 41, 2), ((2, 5, 65, 32), 41, 2), ((1, 2, 40, 24), 9, 1),
+                  ((1, 1, 7, 64), 3, 1), ((1, 2, 70, 64), 1, 1), ((1, 3, 70, 64), 9, 3)]
+    g_of = lambda x, D: (*x[:-1], D)
 
     maps = lambda n, h, w, o=32: (n, h, w, 9 * o)  # a stem tap map: 9 taps of O channels
 
@@ -554,19 +601,20 @@ def kernel_specs():
              replaces="dsmnet_tpu/ops/corr.py:88", primary="serve_dispnetc",
              kernel=corr.corr1d_kernel, plain=corr.corr1d_plain, library=lib_corr1d,
              out=lambda x, y, D, stride: (*x[:-1], D), flops=corr_flops,
-             paths={"serve_dispnetc": [((1, H4, W4, 128), (1, H4, W4, 128), 1, 41, 1)],
-                    # iResNet: conv2 at 1/4 (D = 81); the shared projection
-                    # of conv1 at 1/2 (D = 41, stride 2)
-                    "serve_iresnet": [((1, H4, W4, 128), (1, H4, W4, 128), 1, 81, 1),
-                                      ((1, H2, W2, 64), (1, H2, W2, 64), 1, 41, 2)],
-                    "train_dispnetc": [((Bc, H4, W4, 128), (Bc, H4, W4, 128), 1, 41, 1)],
-                    "train_iresnet": [((Bi, H4, W4, 128), (Bi, H4, W4, 128), 1, 81, 1),
-                                      ((Bi, H2, W2, 64), (Bi, H2, W2, 64), 1, 41, 2)]},
-             # W not a multiple of the 64-column tile, D >= W, stride 2
-             edges=[((2, 5, 100, 128), (2, 5, 100, 128), 41, 1),
-                    ((1, 3, 20, 64), (1, 3, 20, 64), 41, 1),
-                    ((1, 4, 70, 128), (1, 4, 70, 128), 41, 2),
-                    ((1, 3, 33, 32), (1, 3, 33, 32), 20, 2)]),
+             paths=corr_paths, edges=[(x, x, D, s) for x, D, s in corr_edges]),
+        # the VJP (JAX: jnp, no Pallas kernel) at the forward's train shapes;
+        # the wrapper is looked up at the call, so that this table also
+        # serves a tree whose correlation has no VJP kernel
+        dict(name="corr1d_vjp", kind="corr_vjp", route="cuda",
+             source="dsmnet_tpu_torch/csrc/corr1d_vjp.cu",
+             replaces="dsmnet_tpu/ops/corr.py:123", primary="train_iresnet",
+             kernel=lambda *a: corr.corr1d_vjp_kernel(*a), plain=corr.corr1d_vjp,
+             library=lib_corr1d_vjp, out=lambda x, y, g, stride: [x, y],
+             # both sides' products: twice the forward's
+             flops=lambda x, y, out, gs, stride: 2 * corr_flops(x, y, out, gs[-1], stride),
+             paths={path: [(x, y, n, g_of(x, D), s) for x, y, n, D, s in rows]
+                    for path, rows in corr_paths.items() if path.startswith("train")},
+             edges=[(x, x, g_of(x, D), s) for x, D, s in corr_edges]),
         dict(name="fused_costvol", kind="stem", route="cuda",
              source="dsmnet_tpu_torch/csrc/fused_costvol.cu",
              replaces="dsmnet_tpu/ops/fused_costvol.py:510", primary="train",
@@ -594,73 +642,87 @@ def kernel_specs():
     ]
 
 
-def kernel_inputs(spec, a_shape, b_shape, dev, gen):
+def kernel_inputs(spec, a_shape, b_shape, args, dev, gen):
     """bf16 activations ~ N(0, 1); for a conv, a He-scaled bf16 kernel, for
     a weight gradient a bf16 cotangent ~ N(0, 1), for the volume and the
-    correlation the second feature map ~ N(0, 1); for the stem's assembly
-    two float32 tap maps ~ N(0, 1)."""
+    correlation the second feature map ~ N(0, 1), for the correlation's VJP
+    also the bf16 cotangent ~ N(0, 1) whose shape ``args`` names first; for
+    the stem's assembly two float32 tap maps ~ N(0, 1).  Returns (a, b,
+    args with that shape replaced by the cotangent)."""
     if spec["kind"] == "stem":
         return (torch.randn(a_shape, generator=gen, device=dev),
-                torch.randn(b_shape, generator=gen, device=dev))
+                torch.randn(b_shape, generator=gen, device=dev), tuple(args))
     a = torch.randn(a_shape, generator=gen, device=dev).to(torch.bfloat16)
     scale = math.sqrt(2.0 / (math.prod(b_shape[:-2]) * b_shape[-1])) \
         if spec["kind"] == "conv" else 1.0
     b = (torch.randn(b_shape, generator=gen, device=dev) * scale).to(torch.bfloat16)
-    return a, b
+    if spec["kind"] == "corr_vjp":
+        g = torch.randn(args[0], generator=gen, device=dev).to(torch.bfloat16)
+        return a, b, (g, *args[1:])
+    return a, b, tuple(args)
 
 
 def kernel_errors(spec, a, b, args=()):
     """The bf16 and f32 kernels against the plain version in f32 (TF32 off)
-    on the same bf16 inputs: max errors and counts outside the tolerance."""
+    on the same bf16 inputs: max errors and counts outside the tolerance,
+    over every output (the VJP has two)."""
     kind = spec["kind"]
-    out_shape = spec["out"](tuple(a.shape), tuple(b.shape), *args)
+    outs = lambda y: list(y) if isinstance(y, tuple) else [y]
+    f32 = lambda xs: tuple(x.float() if torch.is_tensor(x) else x for x in xs)
+    absf = lambda xs: tuple(x.float().abs() if torch.is_tensor(x) else x for x in xs)
+    flat = lambda ys: torch.cat([y.float().flatten() for y in ys])
+    out_shapes = spec["out"](tuple(a.shape), tuple(b.shape), *args)
+    out_shapes = out_shapes if isinstance(out_shapes, list) else [out_shapes]
     # the stem's assembly reads float32 maps and writes bf16 or float32
-    f32 = (torch.float32,) if kind == "stem" else ()
-    ref = spec["plain"](a.float(), b.float(), *args, *f32).float()
-    y = spec["kernel"](a, b, *args)
-    y32 = spec["kernel"](a.float(), b.float(), *args, *f32)
+    st = (torch.float32,) if kind == "stem" else ()
+    ref = outs(spec["plain"](a.float(), b.float(), *f32(args), *st))
+    y = outs(spec["kernel"](a, b, *args))
+    y32 = outs(spec["kernel"](a.float(), b.float(), *f32(args), *st))
     want = torch.float32 if kind == "dk" else torch.bfloat16
     torch.cuda.synchronize()
     for out, dt in ((y, want), (y32, torch.float32)):
-        if tuple(out.shape) != tuple(out_shape) or out.dtype != dt:
-            raise RuntimeError(f"{spec['name']}: output {tuple(out.shape)} {out.dtype}, "
-                               f"expected {out_shape} {dt}")
-    err = (y.float() - ref).abs()
-    err32 = (y32 - ref).abs()
-    if kind in ("dk", "corr", "stem"):
-        scale = spec["plain"](a.float().abs(), b.float().abs(), *args, *f32).float()
+        for o, shape in zip(out, out_shapes):
+            if tuple(o.shape) != tuple(shape) or o.dtype != dt:
+                raise RuntimeError(f"{spec['name']}: output {tuple(o.shape)} {o.dtype}, "
+                                   f"expected {tuple(shape)} {dt}")
+    refc = flat(ref)
+    err = (flat(y) - refc).abs()
+    err32 = (flat(y32) - refc).abs()
+    if kind in ("dk", "corr", "corr_vjp", "stem"):
+        scale = flat(outs(spec["plain"](a.float().abs(), b.float().abs(), *absf(args), *st)))
         tol32 = (DK_ATOL + DK_RTOL * scale) if kind == "dk" else CORR_SCALE_TOL * scale
-        tol = tol32 if kind == "dk" else tol32 + CORR_BF16_RTOL * ref.abs()
+        tol = tol32 if kind == "dk" else tol32 + CORR_BF16_RTOL * refc.abs()
     elif kind == "copy":
         # the copy must give the plain version's bits in either dtype
-        scale = ref.abs()
-        tol = tol32 = torch.zeros_like(ref)
+        scale = refc.abs()
+        tol = tol32 = torch.zeros_like(refc)
     else:
-        scale = ref.abs()
+        scale = refc.abs()
         tol = BF16_ATOL + BF16_RTOL * scale
         tol32 = F32_ATOL + F32_RTOL * scale
-    res = dict(max_abs_err=err.max().item(), ref_max_abs=ref.abs().max().item(),
+    res = dict(max_abs_err=err.max().item(), ref_max_abs=refc.abs().max().item(),
                n_outside_tol=(err > tol).sum().item(), f32_max_abs_err=err32.max().item(),
                f32_n_outside_tol=(err32 > tol32).sum().item())
-    if kind in ("dk", "corr", "stem"):
+    if kind in ("dk", "corr", "corr_vjp", "stem"):
         res["max_err_over_scale"] = (err / scale.clamp(min=1e-30)).max().item()
     if kind == "stem":
-        res["same_bits_as_plain"] = bool(torch.equal(y32, ref)
-                                         and torch.equal(y, spec["plain"](a, b, *args)))
+        res["same_bits_as_plain"] = bool(torch.equal(y32[0], ref[0])
+                                         and torch.equal(y[0], spec["plain"](a, b, *args)))
     if kind == "copy":
-        res["bit_exact"] = bool(torch.equal(y, spec["plain"](a, b, *args))
-                                and torch.equal(y32, ref))
-    if kind == "dk":
-        # a weight gradient is the same bits on every launch
-        again = spec["kernel"](a, b)
+        res["bit_exact"] = bool(torch.equal(y[0], spec["plain"](a, b, *args))
+                                and torch.equal(y32[0], ref[0]))
+    if kind in ("dk", "corr_vjp"):
+        # a weight gradient and the VJP are the same bits on every launch
+        again = outs(spec["kernel"](a, b, *args))
         torch.cuda.synchronize()
-        res["bit_identical"] = bool(torch.equal(y, again))
+        res["bit_identical"] = all(torch.equal(u, v) for u, v in zip(y, again))
     bad = (res["n_outside_tol"] or res["f32_n_outside_tol"]
            or not res.get("bit_identical", True) or not res.get("bit_exact", True))
-    if bad or not torch.isfinite(y.float()).all():
-        emit({"kernel_failure": {"kernel": spec["name"], "a": list(a.shape), "args": list(args),
-                                 **res}})
-        raise RuntimeError(f"{spec['name']} at {tuple(a.shape)} {args}: {res['n_outside_tol']} "
+    if bad or not all(torch.isfinite(o.float()).all() for o in y):
+        emit({"kernel_failure": {"kernel": spec["name"], "a": list(a.shape),
+                                 "args": [list(x.shape) if torch.is_tensor(x) else x
+                                          for x in args], **res}})
+        raise RuntimeError(f"{spec['name']} at {tuple(a.shape)}: {res['n_outside_tol']} "
                            f"bf16 / {res['f32_n_outside_tol']} f32 outputs outside tolerance, "
                            f"bit-identical {res.get('bit_identical', 'n/a')}, "
                            f"bit-exact {res.get('bit_exact', 'n/a')}")
@@ -676,6 +738,10 @@ def tolerance_text(spec) -> str:
     if spec["kind"] == "corr":
         return (f"|k - ref| <= {CORR_SCALE_TOL} (|fL| . |fR|) + 2^-8 |ref| (f32: "
                 f"{CORR_SCALE_TOL} (|fL| . |fR|))")
+    if spec["kind"] == "corr_vjp":
+        return (f"|k - ref| <= {CORR_SCALE_TOL} vjp(|fL|, |fR|, |g|) + 2^-8 |ref| against the "
+                f"plain VJP summed in float32 on the same inputs (f32: {CORR_SCALE_TOL} "
+                "vjp(|fL|, |fR|, |g|)); two launches bit-identical")
     if spec["kind"] == "stem":
         return (f"|k - ref| <= {CORR_SCALE_TOL} assembly(|A|, |B|) + 2^-8 |ref| (f32 output: "
                 f"{CORR_SCALE_TOL} assembly(|A|, |B|))")
@@ -686,9 +752,9 @@ def check_edges(spec, dev, gen):
     """Ragged-edge shapes: errors only."""
     rows = []
     for a_s, b_s, *args in spec["edges"]:
-        a, b = kernel_inputs(spec, a_s, b_s, dev, gen)
+        a, b, targs = kernel_inputs(spec, a_s, b_s, args, dev, gen)
         rows.append(dict(a=list(a_s), b=list(b_s), args=args,
-                         **kernel_errors(spec, a, b, tuple(args))))
+                         **kernel_errors(spec, a, b, targs)))
     emit({"kernel_edges": {"kernel": spec["name"], "cases": rows}})
 
 
@@ -865,21 +931,25 @@ def check_kernel(spec, a_shape, b_shape, launches, path, dev, gen, *args):
         row = dict(MEASURED[key], path=path, launches=launches)
         emit({"kernel_check": row})
         return row
-    a, b = kernel_inputs(spec, a_shape, b_shape, dev, gen)
+    a, b, targs = kernel_inputs(spec, a_shape, b_shape, args, dev, gen)
     out_shape = spec["out"](a_shape, b_shape, *args)
-    errs = kernel_errors(spec, a, b, args)
+    errs = kernel_errors(spec, a, b, targs)
     flops = spec["flops"](a_shape, b_shape, out_shape, *args)
-    out_bytes = (4 if spec["kind"] == "dk" else 2) * math.prod(out_shape)
-    nbytes = a.element_size() * (math.prod(a_shape) + math.prod(b_shape)) + out_bytes
+    # each input read once, each output written once (the VJP's two)
+    out_shapes = out_shape if isinstance(out_shape, list) else [out_shape]
+    out_bytes = (4 if spec["kind"] == "dk" else 2) * sum(math.prod(o) for o in out_shapes)
+    nbytes = a.element_size() * (math.prod(a_shape) + math.prod(b_shape)) + out_bytes + sum(
+        t.numel() * t.element_size() for t in targs if torch.is_tensor(t))
     peak = spec.get("peak_flops", PEAK_BF16_FLOPS)
     t_flops, t_bytes = flops / peak * 1e3, nbytes / PEAK_BYTES * 1e3
     row = dict(
         kernel=spec["name"], path=path, a=list(a_shape), b=list(b_shape), args=list(args),
-        out=list(out_shape), launches=launches, **errs, tolerance=tolerance_text(spec),
-        kernel_ms=time_ms(lambda: spec["kernel"](a, b, *args)),
-        kernel_host_ms=host_ms(lambda: spec["kernel"](a, b, *args)),
-        plain_ms=time_ms(lambda: spec["plain"](a, b, *args)),
-        library_ms=time_ms(spec["library"](a, b, *args)),
+        out=[list(o) for o in out_shapes] if isinstance(out_shape, list) else list(out_shape),
+        launches=launches, **errs, tolerance=tolerance_text(spec),
+        kernel_ms=time_ms(lambda: spec["kernel"](a, b, *targs)),
+        kernel_host_ms=host_ms(lambda: spec["kernel"](a, b, *targs)),
+        plain_ms=time_ms(lambda: spec["plain"](a, b, *targs)),
+        library_ms=time_ms(spec["library"](a, b, *targs)),
         bound_ms=max(t_flops, t_bytes), bound_by="operations" if t_flops >= t_bytes else "bytes",
         gflop=flops / 1e9, mbytes=nbytes / 1e6, measured_on=path,
     )
@@ -1097,9 +1167,38 @@ def serve_model(name: str, dev, n_requests: int) -> dict:
     return counts[-1]
 
 
+def corr_backward(prof) -> dict:
+    """The correlation's backward in a profile: the device ms and the
+    kernel launches under each ``_Corr1dBackward`` autograd node (its VJP
+    and whatever it runs: the plain VJP's elementwise and indexing kernels,
+    or the VJP kernel and a copy of a strided cotangent), summed over the
+    nodes, and the launches and ms by kernel name."""
+    name = "_Corr1dBackward"
+
+    def inside(e):
+        p = e.cpu_parent
+        while p is not None:
+            if name in p.name:
+                return True
+            p = p.cpu_parent
+        return False
+
+    def kernels(e):
+        return list(e.kernels) + [k for c in e.cpu_children for k in kernels(c)]
+
+    nodes = [e for e in prof.events() if name in e.name and not inside(e)]
+    by_name = {}
+    for k in (k for e in nodes for k in kernels(e)):
+        n, ms = by_name.get(k.name[:80], (0, 0.0))
+        by_name[k.name[:80]] = (n + 1, ms + k.duration / 1e3)
+    return {"nodes": len(nodes), "device_ms": sum(e.device_time_total for e in nodes) / 1e3,
+            "launches": sum(n for n, _ in by_name.values()), "kernels": by_name}
+
+
 def profile(tag: str, fn, top: int = 25) -> None:
     """Where one call's time goes: device time by kernel under
-    torch.profiler, and the device's busy share of the call's wall time."""
+    torch.profiler, the device's busy share of the call's wall time, and
+    the correlation's backward (``corr_backward``) where the call has one."""
     from torch.profiler import ProfilerActivity, profile as torch_profile
 
     with torch_profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -1124,10 +1223,13 @@ def profile(tag: str, fn, top: int = 25) -> None:
                             "s1_fwd_reduce", "s2_fwd_kernel", "deconv_k3s2_kernel",
                             "deconv_ring_kernel", "dk_k3_kernel", "s1_dk_kernel",
                             "s2_dk_kernel", "dk_reduce",
-                            "cost_volume_kernel", "corr1d_kernel", "fused_costvol_kernel")))
-    emit({tag: {"wall_ms": wall_ms, "device_ms": device_ms,
-                "device_busy_share": device_ms / wall_ms, "ported_kernels_ms": ported_ms,
-                "top_kernels_ms_count": kernels[:top]}})
+                            "cost_volume_kernel", "corr1d_", "fused_costvol_kernel")))
+    row = {"wall_ms": wall_ms, "device_ms": device_ms, "device_busy_share": device_ms / wall_ms,
+           "ported_kernels_ms": ported_ms, "top_kernels_ms_count": kernels[:top]}
+    corr_bwd = corr_backward(prof)
+    if corr_bwd["nodes"]:
+        row["corr_backward"] = corr_bwd
+    emit({tag: row})
 
 
 def train_batch(n: int, dev, h: int = H, w: int = W) -> torch.Tensor:
@@ -1230,8 +1332,9 @@ def run_training(dev, name: str = "psmnet") -> dict:
     """The supervised train step of ``name`` (TRAIN_RUNS: path, batch,
     steps, Adam's lr), bf16, at H x W and maxdisparity MAXDISP, on one
     fixed batch: every step's launches must equal
-    TRAIN_LAUNCHES[name] and the loss must fall.  PSMNet and GCNet are also
-    profiled for one step.  Returns the launches of one step."""
+    TRAIN_LAUNCHES[name] and the loss must fall.  PSMNet, GCNet, DispNetC
+    and iResNet are also profiled for one step.  Returns the launches of one
+    step."""
     from dsmnet_tpu_torch.models.layers import compute_dtype
     from dsmnet_tpu_torch.ops import _build
     from dsmnet_tpu_torch.train import create_train_state, make_supervised_train_step
@@ -1256,7 +1359,7 @@ def run_training(dev, name: str = "psmnet") -> dict:
             losses.append(loss)
         metrics = {k: v.item() for k, v in m.items()}
         peak = torch.cuda.max_memory_allocated() / 1e9
-        if name in ("psmnet", "gcnet"):
+        if name in ("psmnet", "gcnet", "dispnetcorr", "iresnet"):
             profile(f"{path}_profile", lambda: step(state, batch, lr, weights))
     med = statistics.median(step_ms[1:])  # the first step also warms the allocator
     emit({f"{path}_bf16": {
@@ -1269,6 +1372,24 @@ def run_training(dev, name: str = "psmnet") -> dict:
     if not all(math.isfinite(v) for v in losses) or not losses[-1] < losses[0]:
         raise RuntimeError(f"{name}: the loss did not fall over {steps} steps: {losses}")
     return counts[-1]
+
+
+def profile_train_step(dev, name: str) -> None:
+    """One bf16 train step of ``name`` (TRAIN_RUNS' batch and lr) profiled
+    after two unprofiled ones, launches unchecked: the profile alone, for a
+    run with ``--profile-train`` (on this tree or on another commit's)."""
+    from dsmnet_tpu_torch.models.layers import compute_dtype
+    from dsmnet_tpu_torch.train import create_train_state, make_supervised_train_step
+
+    path, batch_n, _, lr = TRAIN_RUNS[name]
+    state, opt = create_train_state(seeded_model(dev, name), device=dev)
+    step = make_supervised_train_step(state.model, opt)
+    batch = train_batch(batch_n, dev)
+    weights = loss_weights(state.model)
+    with compute_dtype(torch.bfloat16):
+        for _ in range(2):
+            step(state, batch, lr, weights)["loss"].item()
+        profile(f"{path}_profile", lambda: step(state, batch, lr, weights))
 
 
 def check_remat(dev, name: str = "gcnet", steps: int = 3) -> None:
@@ -1393,7 +1514,18 @@ def ptxas_report(log: str) -> dict:
     return out
 
 
-def main() -> int:
+def main(argv: list[str] | None = None) -> int:
+    """The whole run; ``--only K1,K2`` checks and times only those kernels
+    (edges and every path's rows) and ``--profile-train N1,N2`` profiles one
+    train step of each net, and with either the run stops there (no
+    ``ok`` line): the pieces that can also be run from another commit's
+    tree, beside which this file is copied."""
+    import argparse
+
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--only", default="", help="kernel names, comma-separated")
+    ap.add_argument("--profile-train", default="", help="model names, comma-separated")
+    opts = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
         return 1
@@ -1419,6 +1551,17 @@ def main() -> int:
     gen = torch.Generator(device=dev).manual_seed(0)
 
     specs = kernel_specs()
+    if opts.only or opts.profile_train:
+        for s in specs:
+            if s["name"] in opts.only.split(","):
+                check_edges(s, dev, gen)
+                for path, shapes in s["paths"].items():
+                    for a, b, n, *args in shapes:
+                        check_kernel(s, a, b, n, path, dev, gen, *args)
+        for name in filter(None, opts.profile_train.split(",")):
+            profile_train_step(dev, name)
+        emit({"script_s": time.perf_counter() - T_START})
+        return 0
     for s in specs:
         check_edges(s, dev, gen)
     rows = {(s["name"], path): [check_kernel(s, a, b, n, path, dev, gen, *args)

@@ -43,6 +43,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 # weight-gradient kernels take (x, g, dk, workspace, dtype, N, D, H, W, C,
 # Co, chunks); the cost volume takes (fL, fR, out, dtype, N, H, W, F, D,
 # mask_left), the correlation (fL, fR, out, dtype, N, H, W, C, D, stride),
+# its VJP (fL, fR, g, dfL, dfR, dtype, N, H, W, C, D, stride),
 # the stem's assembly (A, B, out, dtype of out, N, H, W, O, D, mask_left).
 ENTRY_POINTS = {
     "conv2d_k3": ("dsm_conv2d_k3", 3, 7),
@@ -54,6 +55,7 @@ ENTRY_POINTS = {
     "conv3d_dk_k3s2": ("dsm_conv3d_dk_k3s2", 4, 8),
     "cost_volume": ("dsm_cost_volume", 3, 7),
     "corr1d": ("dsm_corr1d", 3, 7),
+    "corr1d_vjp": ("dsm_corr1d_vjp", 5, 7),
     "fused_costvol": ("dsm_fused_costvol", 3, 7),
 }
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}

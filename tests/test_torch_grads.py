@@ -232,6 +232,9 @@ _WRAPPERS = {
     "cost_volume": (lambda a, b: t_cost_volume.cost_volume_kernel(a, b, 4), (1, 4, 8, 32),
                     (1, 4, 8, 32)),
     "corr1d": (lambda a, b: t_corr.corr1d_kernel(a, b, 5), (1, 4, 8, 32), (1, 4, 8, 32)),
+    # the correlation's VJP takes the features and the cotangent (N,H,W,D)
+    "corr1d_vjp": (lambda a, b: t_corr.corr1d_vjp_kernel(a, b, torch.zeros(1, 4, 8, 5)),
+                   (1, 4, 8, 32), (1, 4, 8, 32)),
     # the stem's assembly takes the two tap maps (N,H,W,9*O)
     "fused_costvol": (lambda a, b: t_fused.cost_volume_conv3x3_kernel(a, b, 4, True, torch.float32),
                       (1, 4, 8, 288), (1, 4, 8, 288)),

@@ -92,6 +92,9 @@ _WRAPPERS = {
                     "concat_cost_volume_reference", (1, 4, 8, 32), (1, 4, 8, 32)),
     "corr1d": (lambda a, b: corr.corr1d_kernel(a, b, 5), corr, "corr1d_plain", (1, 4, 8, 32),
                (1, 4, 8, 32)),
+    # the correlation's VJP, which follows the corr1d switch; its cotangent (N,H,W,D)
+    "corr1d_vjp": (lambda a, b: corr.corr1d_vjp_kernel(a, b, torch.zeros(1, 4, 8, 5)), corr,
+                   "corr1d_vjp", (1, 4, 8, 32), (1, 4, 8, 32)),
     "fused_costvol": (lambda a, b: fused_costvol.cost_volume_conv3x3_kernel(
         a, b, 4, True, torch.float32), fused_costvol, "assemble_plain", (1, 4, 8, 288),
         (1, 4, 8, 288)),
@@ -108,7 +111,7 @@ def test_kernel_wrapper_refuses_cpu_tensor(op, monkeypatch):
     monkeypatch.setattr(_build, "build", lambda: calls.append("build"))
     before = dict(_build.LAUNCHES)
     x, k = torch.zeros(xs), torch.zeros(ks)
-    with config.implementation("kernel", ops=(op,)):
+    with config.implementation("kernel", ops=(op.removesuffix("_vjp"),)):
         with pytest.raises(RuntimeError, match="runs on CUDA tensors"):
             wrapper(x, k)
     assert calls == []

@@ -216,6 +216,7 @@ _WRAPPERS = [
     (conv3d, "deconv3d_k3s2_kernel", "deconv3d_k3s2"), (conv3d, "conv3d_dk_k3", "conv3d_dk_k3"),
     (conv3d, "conv3d_s2_dk_k3", "conv3d_dk_k3s2"),
     (t_cost_volume, "cost_volume_kernel", "cost_volume"), (t_corr, "corr1d_kernel", "corr1d"),
+    (t_corr, "corr1d_vjp_kernel", "corr1d_vjp"),
     (t_fused, "cost_volume_conv3x3_kernel", "fused_costvol"),
 ]
 
