@@ -3,10 +3,13 @@
 
     python3 chip_smoke.py
     python3 chip_smoke.py --only corr1d,corr1d_vjp --profile-train dispnetcorr,iresnet
+    python3 chip_smoke.py --trainer-workers 1,4,16
 
 The second form runs only the named kernels' checks and timings (step 2)
 and one profiled bf16 train step of each named model, and prints no ``ok``
 line; copied beside another commit's package it measures that commit.
+The third runs one epoch of step 10's trainer for each loader worker
+count (``trainer_workers``), and prints no ``ok`` line either.
 
 1. Builds the hand-written CUDA kernels from ``dsmnet_tpu_torch/csrc`` and
    prints the card, the versions and the build time.
@@ -67,7 +70,26 @@ line; copied beside another commit's package it measures that commit.
    for one step, with the device time and launches under the correlation's
    backward (``corr_backward``).  Each path's counted launches must equal
    the launches of its rows in 2.
-9. The script's command time, one ``{"kernels": [...]}`` line (launches
+9. Serving PSMNet without the fused stem (``fused_stem=False``,
+   ``serve_psmnet_volume_bf16``): the masked concat volume on H, then
+   ``dres0_0`` on B; every request launches SERVE_LAUNCHES["psmnet_volume"]
+   (H, not J).
+10. The trainer through its command line (``trainer_bf16``):
+   ``dsmnet_tpu_torch.cli.main`` trains PSMNet (bf16, batch 4, 384x768
+   crops, maxdisparity 192) on the synthetic dataset for one epoch of
+   TRAINER_STEPS steps and a validation of TRAINER_VAL_BATCHES batches,
+   with a profiler trace of steps 10-15; its launches must equal
+   TRAINER_STEPS train steps' plus TRAINER_VAL_BATCHES batch-4 eval
+   forwards' (path "trainer"), and it must write its checkpoints, history
+   and trace.  A second call with ``--epochs 2`` must resume at epoch 1 at
+   ``lr_for_epoch``'s rate, run one more epoch with the same launches,
+   and end with a lower mean train loss than epoch 0's.  Then ``--mode
+   test`` (a finite loss, D1 and EPE) and ``--mode submit`` (uint16 PNGs
+   that read back as the disparity x 256) from the best weights; the
+   loader's worker threads must have ended.  Printed: each epoch's median
+   ``bt`` (whole step) and ``dt`` (waiting for data), frames/s, peak
+   memory and losses.
+11. The script's command time, one ``{"kernels": [...]}`` line (launches
    and times on each kernel's first path, "primary": the train step for
    A-G and J, GCNet's request for H, DispNetC's for I, iResNet's step for
    I's VJP; and per path), the card's
@@ -83,10 +105,14 @@ import contextlib
 import copy
 import json
 import math
+import os
+import shutil
 import statistics
 import subprocess
 import sys
+import threading
 import time
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -148,9 +174,15 @@ SERVE_LAUNCHES = {
     "psmnet_basic": {"conv2d_k3": 16, "conv3d_k3": 11, "cost_volume": 1},
     "dispnetcorr": {"corr1d": 1},
     "iresnet": {"corr1d": 2},
+    # PSMNet with fused_stem=False: the volume on H, then dres0_0 (64 -> 32) on B
+    "psmnet_volume": {"conv2d_k3": 8, "conv3d_k3": 13, "conv3d_k3s2": 6, "deconv3d_k3s2": 3,
+                      "cost_volume": 1},
 }
 SERVE_PATHS = {"gcnet": "serve_gcnet", "psmnet_basic": "serve_psmnet_basic",
-               "dispnetcorr": "serve_dispnetc", "iresnet": "serve_iresnet"}
+               "dispnetcorr": "serve_dispnetc", "iresnet": "serve_iresnet",
+               "psmnet_volume": "serve_psmnet_volume"}
+# a served configuration that is not a model's default: (net, create_model kwargs)
+SERVE_NETS = {"psmnet_volume": ("psmnet", {"fused_stem": False})}
 # model_gcnet_f32 and grad_gcnet_f32: a size whose float64 pass stays short
 # (~2 TFLOP per pair at 384x768), whose volume stays even down to l30's
 # input and whose l31/l32 (1, 3, 6, 12, 128) still reach F at 128 -> 128
@@ -192,6 +224,15 @@ TRAIN_RUNS = {"psmnet": ("train", TRAIN_BATCH, TRAIN_STEPS, TRAIN_LR),
               "dispnet": ("train_dispnet", 4, 4, 1e-4),
               "dispnetcorr": ("train_dispnetc", 4, 4, 1e-4),
               "iresnet": ("train_iresnet", 4, 4, 1e-4)}
+
+# the trainer's command line (trainer_bf16): PSMNet as the train phase runs
+# it, on the synthetic dataset (64 training samples, 8 validation samples,
+# both 384x768, so no shift: --shift_max 0), one epoch a call
+TRAINER_ARGS = ["--net", "psmnet", "--dataset", "synthetic", "--batchsize", str(TRAIN_BATCH),
+                "--crop_h", str(H), "--crop_w", str(W), "--maxdisparity", str(MAXDISP),
+                "--shift_max", "0", "--dtype", "bfloat16", "--lr", str(TRAIN_LR)]
+TRAINER_STEPS, TRAINER_VAL_BATCHES = 64 // TRAIN_BATCH, 8 // TRAIN_BATCH
+TRAINER_TEST_SAMPLES = 16  # --mode test and submit: the synthetic set of 16 pairs
 
 SLOW_CALL_MS = 20.0
 
@@ -414,7 +455,7 @@ def kernel_specs():
     # "edges": small shapes whose H, W (and D) are not multiples of any
     # tile size, so every ragged-edge path of a kernel is held to its plain
     # version as well; checked only, not timed
-    return [
+    specs = [
         dict(name="conv2d_k3", kind="conv", route="cuda", source="dsmnet_tpu_torch/csrc/conv2d_k3.cu",
              replaces="dsmnet_tpu/ops/conv2d_pallas.py:183", primary="train",
              kernel=conv2d.conv2d_k3, plain=conv2d.conv2d_k3_plain, library=lib_conv2d,
@@ -640,6 +681,28 @@ def kernel_specs():
                     (maps(1, 4, 50, 64), maps(1, 4, 50, 64), 24, True),
                     (maps(2, 3, 37, 64), maps(2, 3, 37, 64), 13, False)]),
     ]
+    for spec in specs:
+        paths = spec["paths"]
+        # PSMNet without the fused stem: PSMNet's request, the volume as
+        # PSMNet-basic builds it, and dres0_0 (64 -> 32) on B
+        if spec["name"] in ("conv2d_k3", "conv3d_k3s2", "deconv3d_k3s2"):
+            paths["serve_psmnet_volume"] = paths["serve"]
+        elif spec["name"] == "conv3d_k3":
+            paths["serve_psmnet_volume"] = paths["serve"] + [
+                ((1, D4, H4, W4, 64), k3(64, 32), 1)]
+        elif spec["name"] == "cost_volume":
+            paths["serve_psmnet_volume"] = paths["serve_psmnet_basic"]
+        # the trainer's epoch: TRAINER_STEPS train steps and TRAINER_VAL_BATCHES
+        # eval forwards at the train batch (a request's shapes at batch B; both
+        # operands of the stem's assembly are per sample)
+        if "train" in paths:
+            per_sample = spec["kind"] == "stem"
+            batched = lambda a: (a[0] * B, *a[1:])
+            paths["trainer"] = (
+                [(a, b, n * TRAINER_STEPS, *args) for a, b, n, *args in paths["train"]]
+                + [(batched(a), batched(b) if per_sample else b, n * TRAINER_VAL_BATCHES, *args)
+                   for a, b, n, *args in paths.get("serve", [])])
+    return specs
 
 
 def kernel_inputs(spec, a_shape, b_shape, args, dev, gen):
@@ -1131,7 +1194,8 @@ def serve_model(name: str, dev, n_requests: int) -> dict:
     from dsmnet_tpu_torch.serve import Predictor
 
     path = SERVE_PATHS[name]
-    model = seeded_model(dev, name)
+    net, kwargs = SERVE_NETS.get(name, (name, {}))
+    model = seeded_model(dev, net, **kwargs)
     pairs = request_pairs(n_requests + 1, H, W)
     iL, iR = (normalize_imagenet(torch.from_numpy(p)[None].to(dev)) for p in pairs[0])
     t0 = time.perf_counter()
@@ -1498,6 +1562,136 @@ def check_remat(dev, name: str = "gcnet", steps: int = 3) -> None:
                            f"{rm['loss']}")
 
 
+TRAINER_WORK = Path(__file__).resolve().parent / "_chip_smoke_trainer"
+
+
+def train_via_cli(args: list[str], epochs: int, *extra: str):
+    """``cli.main(["--mode", "train", ...])`` up to ``epochs``: returns the
+    trainer, the loss history, the launches counted over the call and a row
+    of the last epoch's figures (median ``bt`` and ``dt`` over its steps)."""
+    from dsmnet_tpu_torch import cli
+    from dsmnet_tpu_torch.ops import _build
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _build.reset_launches()
+    t0 = time.perf_counter()
+    trainer, hist = cli.main(["--mode", "train", "--epochs", str(epochs), *args, *extra])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {k: v for k, v in _build.LAUNCHES.items() if v}
+    times = {k: statistics.median(v) * 1e3 for k, v in trainer.times.items()}
+    return trainer, hist, launches, dict(
+        epoch=trainer.epoch, lr=trainer.lr, steps=len(trainer.times["bt"]), wall_s=wall,
+        median_bt_ms=times["bt"], median_dt_ms=times["dt"],
+        frames_per_s=TRAIN_BATCH * 1e3 / times["bt"],
+        bt_ms=[t * 1e3 for t in trainer.times["bt"]],
+        dt_ms=[t * 1e3 for t in trainer.times["dt"]],
+        peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9, launches=launches)
+
+
+def trainer_workers(counts: list[int]) -> None:
+    """One trainer epoch (``trainer_bf16``'s command, no trace) for each
+    loader worker count (``trainer_workers``): how ``bt`` and ``dt`` move
+    with the threads that decode batches beside the training thread."""
+    for nw in counts:
+        shutil.rmtree(TRAINER_WORK, ignore_errors=True)
+        _, _, _, row = train_via_cli(TRAINER_ARGS + ["--output", str(TRAINER_WORK / "out"),
+                                                     "--num_workers", str(nw)], 1)
+        emit({"trainer_workers": {"num_workers": nw, **row}})
+    shutil.rmtree(TRAINER_WORK, ignore_errors=True)
+
+
+def run_trainer(dev) -> dict:
+    """The trainer through ``dsmnet_tpu_torch.cli.main`` (``trainer_bf16``):
+    one epoch with a profiler trace, its launches counted; a resumed second
+    epoch; ``--mode test`` and ``--mode submit`` from the best weights.
+    Checkpoints and outputs go to a scratch directory beside this file,
+    removed at the end.  Returns the first epoch's launches."""
+    from dsmnet_tpu_torch import cli
+    from dsmnet_tpu_torch.images import read_png16
+    from dsmnet_tpu_torch.ops import _build
+    from dsmnet_tpu_torch.train import lr_for_epoch
+
+    work = TRAINER_WORK
+    shutil.rmtree(work, ignore_errors=True)
+    out, trace_dir = work / "out", work / "trace"
+    args = TRAINER_ARGS + ["--output", str(out)]
+    expected = {k: TRAINER_STEPS * TRAIN_LAUNCHES["psmnet"].get(k, 0)
+                + TRAINER_VAL_BATCHES * REQUEST_LAUNCHES.get(k, 0)
+                for k in {**TRAIN_LAUNCHES["psmnet"], **REQUEST_LAUNCHES}}
+
+    t1, _, launches, first = train_via_cli(args, 1, "--profile_dir", str(trace_dir))
+    files = {name: (Path(t1.dirpath) / name).is_file() for name in (
+        "model_checkpoint.pt", "model_best.pt", "weight_best.pt", "loss_history.json")}
+    traces = sorted(p.name for p in trace_dir.glob("*.json"))
+    t2, hist, launches2, second = train_via_cli(args, 2)
+    weights = str(Path(t2.dirpath) / "weight_best.pt")
+
+    # --mode test on the synthetic set, from the best weights
+    _build.reset_launches()
+    _, (vloss, vepe, vd1) = cli.main(["--mode", "test", *args, "--path_weight", weights])
+    test_launches = {k: v for k, v in _build.LAUNCHES.items() if v}
+    test_expected = {k: v * TRAINER_TEST_SAMPLES // TRAIN_BATCH
+                     for k, v in REQUEST_LAUNCHES.items()}
+
+    # --mode submit, batch 1, writing under the scratch directory
+    cwd = os.getcwd()
+    os.chdir(work)
+    try:
+        ts, res = cli.main(["--mode", "submit", *args, "--batchsize", "1", "--flag_model",
+                            "smoke", "--path_weight", weights])
+    finally:
+        os.chdir(cwd)
+    png_dir = work / "submit" / "synthetic_smoke"
+    batches = iter(ts.loader_val)
+    batch, names = next(batches)
+    batches.close()  # ends the loader's workers
+    disp = ts._eval_step(ts.state, torch.from_numpy(batch).to(dev), ts._weights(0))["disp"]
+    want = np.clip(disp[0, :, :, 0].float().cpu().numpy() * 256.0, 0, 65535).astype(np.uint16)
+    got = read_png16(str(png_dir / (os.path.splitext(names[0])[0] + ".png")))
+    png_diff = int(np.abs(got.astype(np.int64) - want).max())
+    workers = [t.name for t in threading.enumerate() if t.name.startswith("BatchLoader")]
+    shutil.rmtree(work, ignore_errors=True)
+
+    emit({"trainer_bf16": {
+        "command": "cli.main(['--mode', 'train', " + ", ".join(repr(a) for a in args) + "])",
+        "batch": TRAIN_BATCH, "crop": [H, W], "maxdisparity": MAXDISP,
+        "epoch_0": first, "epoch_1": second, "expected_launches_per_epoch": expected,
+        "train_loss_by_epoch": hist["loss"], "val_loss_by_epoch": hist["loss_val"],
+        "val_d1_by_epoch": hist["d1_val"], "val_epe_by_epoch": hist["epe_val"],
+        "files": files, "profiler_traces": traces,
+        "test": {"loss": vloss, "epe": vepe, "d1": vd1, "launches": test_launches,
+                 "expected_launches": test_expected},
+        "submit": {"pngs": len(res["filename"]), "d1": res["D1"][:4], "epe": res["epe"][:4],
+                   "png_vs_disparity_x256_max_diff": png_diff},
+        "loader_threads_left": workers}})
+    if launches != expected or launches2 != expected:
+        raise RuntimeError(f"trainer launches {launches} / {launches2}, expected {expected}")
+    if not all(files.values()) or not traces:
+        raise RuntimeError(f"trainer files {files}, traces {traces}")
+    if first["steps"] != TRAINER_STEPS or (second["epoch"], second["steps"]) != (1, TRAINER_STEPS):
+        raise RuntimeError(f"epochs ran {first['steps']} and {second['steps']} steps, the "
+                           f"second ending at epoch {second['epoch']}")
+    if second["lr"] != lr_for_epoch(1, TRAIN_LR, 50, 20) or t2.state.step != 2 * TRAINER_STEPS:
+        raise RuntimeError(f"resumed at lr {second['lr']}, step {t2.state.step}")
+    losses = hist["loss"] + hist["loss_val"]
+    if len(hist["loss"]) != 2 or not all(math.isfinite(v) for v in losses) \
+            or not hist["loss"][1] < hist["loss"][0]:
+        raise RuntimeError(f"the mean train loss did not fall from epoch 0 to 1: {hist}")
+    if not all(math.isfinite(v) for v in (vloss, vepe, vd1)) or test_launches != test_expected:
+        raise RuntimeError(f"test mode: loss {vloss}, epe {vepe}, d1 {vd1}, launches "
+                           f"{test_launches} (expected {test_expected})")
+    # the PNG holds the same disparity, rounded down to 1/256 px, from a
+    # second float32 forward on the same weights (a last-bit difference
+    # moves it by at most one step)
+    if len(res["filename"]) != TRAINER_TEST_SAMPLES or png_diff > 1:
+        raise RuntimeError(f"submit wrote {len(res['filename'])} PNGs, max diff {png_diff}")
+    if workers:
+        raise RuntimeError(f"loader threads still running: {workers}")
+    return launches
+
+
 def ptxas_report(log: str) -> dict:
     """Registers and spills per kernel entry from nvcc's ``-Xptxas=-v`` log:
     mangled entry name -> "N registers; X bytes spill stores; Y bytes spill
@@ -1516,15 +1710,18 @@ def ptxas_report(log: str) -> dict:
 
 def main(argv: list[str] | None = None) -> int:
     """The whole run; ``--only K1,K2`` checks and times only those kernels
-    (edges and every path's rows) and ``--profile-train N1,N2`` profiles one
-    train step of each net, and with either the run stops there (no
-    ``ok`` line): the pieces that can also be run from another commit's
-    tree, beside which this file is copied."""
+    (edges and every path's rows), ``--profile-train N1,N2`` profiles one
+    train step of each net and ``--trainer-workers 1,4`` runs one trainer
+    epoch for each loader worker count, and with any of them the run stops
+    there (no ``ok`` line): the pieces that can also be run from another
+    commit's tree, beside which this file is copied."""
     import argparse
 
     ap = argparse.ArgumentParser()
     ap.add_argument("--only", default="", help="kernel names, comma-separated")
     ap.add_argument("--profile-train", default="", help="model names, comma-separated")
+    ap.add_argument("--trainer-workers", default="",
+                    help="loader worker counts, comma-separated: one trainer epoch each")
     opts = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -1551,7 +1748,7 @@ def main(argv: list[str] | None = None) -> int:
     gen = torch.Generator(device=dev).manual_seed(0)
 
     specs = kernel_specs()
-    if opts.only or opts.profile_train:
+    if opts.only or opts.profile_train or opts.trainer_workers:
         for s in specs:
             if s["name"] in opts.only.split(","):
                 check_edges(s, dev, gen)
@@ -1560,6 +1757,7 @@ def main(argv: list[str] | None = None) -> int:
                         check_kernel(s, a, b, n, path, dev, gen, *args)
         for name in filter(None, opts.profile_train.split(",")):
             profile_train_step(dev, name)
+        trainer_workers([int(n) for n in filter(None, opts.trainer_workers.split(","))])
         emit({"script_s": time.perf_counter() - T_START})
         return 0
     for s in specs:
@@ -1580,6 +1778,7 @@ def main(argv: list[str] | None = None) -> int:
         launches[path] = serve_model(name, dev, N_REQUESTS)
     for name in ("psmnet_basic", "dispnet", "dispnetcorr", "iresnet"):
         launches[TRAIN_RUNS[name][0]] = run_training(dev, name)
+    launches["trainer"] = run_trainer(dev)
     # the shapes' launches in kernel_specs must add up to what each path launched
     for s in specs:
         for path in launches:

@@ -5,7 +5,10 @@ and ``normalize_imagenet`` (``dsmnet_tpu/train/color_aug.py:91``), plus a
 dependency-free PNG writer for disparity maps that writes the pixels the
 JAX deploy's ``plt.imsave`` writes (``dsmnet_tpu/cli.py:160-171``):
 matplotlib's default colormap, viridis, carried here as data, since the
-card's machine may lack matplotlib.
+card's machine may lack matplotlib.  ``write_png16`` writes the uint16
+grayscale PNG of a KITTI submission (``dsmnet_tpu/train/trainer.py:384-389``
+writes it through cv2, which the card's machine may also lack), and
+``read_png16`` reads such a file back.
 """
 
 from __future__ import annotations
@@ -21,7 +24,7 @@ IMAGENET_MEAN = (0.485, 0.456, 0.406)
 IMAGENET_STD = (0.229, 0.224, 0.225)
 
 __all__ = ["IMAGENET_MEAN", "IMAGENET_STD", "imread", "load_pfm", "normalize_imagenet",
-           "colorize", "write_png"]
+           "colorize", "write_png", "write_png16", "read_png16"]
 
 # matplotlib's viridis as ``Colormap(x, bytes=True)`` looks it up: its 256
 # RGB entries times 255, truncated to uint8 (alpha is 255), row by row
@@ -108,19 +111,62 @@ def colorize(image: np.ndarray) -> np.ndarray:
     return rgba
 
 
-def write_png(fname: str, image: np.ndarray) -> None:
-    """Write a 2-D float array as the RGBA PNG of :func:`colorize`."""
-    g = colorize(image)
-    h, w = g.shape[:2]
-    raw = b"".join(b"\x00" + g[i].tobytes() for i in range(h))
+_PNG_SIGNATURE = b"\x89PNG\r\n\x1a\n"
+
+
+def _write_png_rows(fname: str, rows: np.ndarray, bit_depth: int, colour_type: int) -> None:
+    """A PNG of ``rows`` (H, row bytes...) in big-endian sample order,
+    every line unfiltered."""
+    h, w = rows.shape[:2]
+    raw = b"".join(b"\x00" + rows[i].tobytes() for i in range(h))
 
     def chunk(kind: bytes, data: bytes) -> bytes:
         return (struct.pack(">I", len(data)) + kind + data
                 + struct.pack(">I", zlib.crc32(kind + data) & 0xFFFFFFFF))
 
     with open(fname, "wb") as f:
-        f.write(b"\x89PNG\r\n\x1a\n")
-        # 8-bit RGBA (colour type 6)
-        f.write(chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, 6, 0, 0, 0)))
+        f.write(_PNG_SIGNATURE)
+        f.write(chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, bit_depth, colour_type, 0, 0, 0)))
         f.write(chunk(b"IDAT", zlib.compress(raw)))
         f.write(chunk(b"IEND", b""))
+
+
+def write_png(fname: str, image: np.ndarray) -> None:
+    """Write a 2-D float array as the RGBA PNG of :func:`colorize`."""
+    # 8-bit RGBA (colour type 6)
+    _write_png_rows(fname, colorize(image), 8, 6)
+
+
+def write_png16(fname: str, image: np.ndarray) -> None:
+    """Write a 2-D uint16 array as a 16-bit grayscale PNG (colour type 0), the
+    file ``cv2.imwrite`` writes for it."""
+    a = np.asarray(image)
+    if a.ndim != 2 or a.dtype != np.uint16:
+        raise ValueError(f"expected a 2-D uint16 array, got {a.shape} {a.dtype}")
+    _write_png_rows(fname, a.astype(">u2"), 16, 0)
+
+
+def read_png16(fname: str) -> np.ndarray:
+    """Read a 16-bit grayscale PNG whose lines are unfiltered, as
+    :func:`write_png16` writes it, into a 2-D uint16 array; raises for any
+    other PNG."""
+    with open(fname, "rb") as f:
+        data = f.read()
+    if data[:8] != _PNG_SIGNATURE:
+        raise ValueError(f"{fname}: not a PNG file")
+    pos, idat, header = 8, [], None
+    while pos < len(data):
+        (length,), kind = struct.unpack(">I", data[pos:pos + 4]), data[pos + 4:pos + 8]
+        body = data[pos + 8:pos + 8 + length]
+        if kind == b"IHDR":
+            header = struct.unpack(">IIBBBBB", body)
+        elif kind == b"IDAT":
+            idat.append(body)
+        pos += 12 + length
+    if header is None or header[2:] != (16, 0, 0, 0, 0):
+        raise ValueError(f"{fname}: not a 16-bit grayscale PNG without interlacing: {header}")
+    w, h = header[:2]
+    lines = np.frombuffer(zlib.decompress(b"".join(idat)), np.uint8).reshape(h, 1 + 2 * w)
+    if lines[:, 0].any():
+        raise ValueError(f"{fname}: filtered lines are not read here")
+    return lines[:, 1:].copy().view(">u2").astype(np.uint16)

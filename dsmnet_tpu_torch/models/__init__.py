@@ -27,7 +27,8 @@ MODELS = {
 def create_model(name: str, maxdisparity: int = 192, **kwargs):
     """Name -> nn.Module (parameters uninitialized until ``reset_parameters``
     or a weight load); ``kwargs`` go to the model's constructor, as in JAX
-    (``dsmnet_tpu/models/__init__.py:30``): ``remat`` (PSMNet, GCNet),
+    (``dsmnet_tpu/models/__init__.py:30``): ``count_levels`` (every model),
+    ``remat`` (PSMNet, GCNet), ``fused_stem`` (PSMNet), ``corr_d`` (DispNetC),
     ``iterations`` (iResNet)."""
     if name not in MODELS:
         raise ValueError(f"unknown model '{name}'; supported: {sorted(MODELS)}")

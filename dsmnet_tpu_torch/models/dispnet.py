@@ -96,11 +96,10 @@ def _finalize(scales, outs, im_shape, clamp: bool, maxdisp: int, delt: float = 1
 class DispNet(nn.Module):
     """Plain encoder-decoder on concat(imL, imR) (reference models/dispnet.py)."""
 
-    count_levels = 7
-
-    def __init__(self, maxdisparity: int = 192):
+    def __init__(self, maxdisparity: int = 192, count_levels: int = 7):
         super().__init__()
         self.maxdisparity = maxdisparity
+        self.count_levels = count_levels
         self.conv1 = _conv(6, 64, 7, 2)
         self.conv2 = _conv(64, 128, 5, 2)
         _add_encoder(self, 128)
@@ -121,15 +120,15 @@ class DispNet(nn.Module):
 
 
 class DispNetC(nn.Module):
-    """Siamese conv1/conv2 + 1-D correlation (D = 41) + redir skip
-    (reference models/dispnetcorr.py:25-79)."""
+    """Siamese conv1/conv2 + 1-D correlation (``corr_d`` shifts, 41 by
+    default, JAX ``dispnet.py:112``) + redir skip (reference
+    models/dispnetcorr.py:25-79)."""
 
-    count_levels = 7
-    corr_d = 41
-
-    def __init__(self, maxdisparity: int = 192):
+    def __init__(self, maxdisparity: int = 192, count_levels: int = 7, corr_d: int = 41):
         super().__init__()
         self.maxdisparity = maxdisparity
+        self.count_levels = count_levels
+        self.corr_d = corr_d
         self.conv1 = _conv(3, 64, 7, 2)
         self.conv2 = _conv(64, 128, 5, 2)
         self.redir = _conv(128, 64, 1, 1)

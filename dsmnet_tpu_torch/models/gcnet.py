@@ -99,11 +99,10 @@ class _Feature3D(nn.Module):
 class GCNet(nn.Module):
     """``gcnet.py:192-231``.  Returns a single full-resolution map."""
 
-    count_levels = 1
-
-    def __init__(self, maxdisparity: int = 192, remat: bool = False):
+    def __init__(self, maxdisparity: int = 192, count_levels: int = 1, remat: bool = False):
         super().__init__()
         self.maxdisparity = maxdisparity
+        self.count_levels = count_levels
         self.layer2d = _Feature2D()
         self.layer3d = _Feature3D(remat)
 

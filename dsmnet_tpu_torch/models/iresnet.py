@@ -41,12 +41,12 @@ class IResNet(nn.Module):
     """Reference models/iresnet.py: stem, initial-disparity subnet and
     ``iterations`` refinement passes (1 by default)."""
 
-    count_levels = 7
     corr_d, refine_d = 81, 41
 
-    def __init__(self, maxdisparity: int = 192, iterations: int = 1):
+    def __init__(self, maxdisparity: int = 192, count_levels: int = 7, iterations: int = 1):
         super().__init__()
         self.maxdisparity = maxdisparity
+        self.count_levels = count_levels
         self.iterations = iterations
         # the multi-scale stem (iresnet.py:27-31,93-104)
         self.conv1 = _conv(3, 64, 7, 2)

@@ -31,11 +31,10 @@ def _c3(cin: int, relu: bool) -> ConvBN:
 class PSMNetBasic(nn.Module):
     """PSMNet basic (reference basic.py:18-42,80-90)."""
 
-    count_levels = 1
-
-    def __init__(self, maxdisparity: int = 192):
+    def __init__(self, maxdisparity: int = 192, count_levels: int = 1):
         super().__init__()
         self.maxdisparity = maxdisparity
+        self.count_levels = count_levels
         self.feature_extraction = _FeatureExtraction()
         self.dres0_0 = _c3(64, True)
         self.dres0_1 = _c3(32, True)

@@ -2,11 +2,11 @@
 
 from .conv2d import conv2d_same
 from .conv3d import conv3d_s2, conv3d_same, deconv3d_k3s2
-from .corr import corr1d
+from .corr import corr1d, corr1d_reference
 from .cost_volume import concat_cost_volume, concat_cost_volume_reference
 from .fused_costvol import cost_volume_conv3x3, cost_volume_conv3x3_reference
 from .regression import trilinear_soft_argmin
-from .resize import interp_matrix, resize_bilinear, upsample2x
+from .resize import interp_matrix, resize_bilinear, resize_trilinear, upsample2x
 from .softargmin import soft_argmin
 from .warp import imwarp, warp_disparity
 
@@ -16,6 +16,7 @@ __all__ = [
     "conv3d_s2",
     "deconv3d_k3s2",
     "corr1d",
+    "corr1d_reference",
     "concat_cost_volume",
     "concat_cost_volume_reference",
     "cost_volume_conv3x3",
@@ -23,6 +24,7 @@ __all__ = [
     "trilinear_soft_argmin",
     "interp_matrix",
     "resize_bilinear",
+    "resize_trilinear",
     "upsample2x",
     "soft_argmin",
     "imwarp",

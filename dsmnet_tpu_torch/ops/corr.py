@@ -30,8 +30,8 @@ import torch.nn.functional as F
 from .. import config
 from . import _build
 
-__all__ = ["corr1d", "corr1d_plain", "corr1d_kernel", "corr1d_vjp", "corr1d_vjp_kernel",
-           "band_plan", "vjp_plan"]
+__all__ = ["corr1d", "corr1d_plain", "corr1d_reference", "corr1d_kernel", "corr1d_vjp",
+           "corr1d_vjp_kernel", "band_plan", "vjp_plan"]
 
 CORR_TILE = 64        # columns of one (n, h) row a block owns (both .cu files' kTile)
 CORR_NB = 4           # n8 tiles of G a strip forms per pass (corr1d.cu kNB)
@@ -153,6 +153,29 @@ def corr1d_vjp_kernel(fL: torch.Tensor, fR: torch.Tensor, g: torch.Tensor,
     return dfL, dfR
 
 
+def _dot_sim(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Default similarity: the channel dot product (reference util_conv.py:64-66)."""
+    return (a * b).sum(-1)
+
+
+def corr1d_reference(fL: torch.Tensor, fR: torch.Tensor, D: int, stride: int = 1,
+                     simfun=None) -> torch.Tensor:
+    """The correlation with any similarity, (N,H,W,C) x2 -> (N,H,W,D)
+    (``dsmnet_tpu/ops/corr.py:52``): ``simfun(a, b) -> (N,H,W')`` scores
+    aligned feature vectors (e.g. a cosine similarity, as the reference's
+    Corr1d accepts); the dot product by default."""
+    simfun = simfun or _dot_sim
+    n, h, w, _ = fL.shape
+    outs = [simfun(fL, fR)]
+    for d in range(1, D):
+        idx = d * stride
+        if idx >= w:
+            outs.append(fL.new_zeros((n, h, w)))
+            continue
+        outs.append(F.pad(simfun(fL[:, :, idx:], fR[:, :, :w - idx]), (idx, 0)))
+    return torch.stack(outs, dim=-1)
+
+
 class _Corr1d(torch.autograd.Function):
     """Kernel I forward; its VJP kernel backward."""
 
@@ -171,9 +194,14 @@ class _Corr1d(torch.autograd.Function):
 
 
 def corr1d(fL: torch.Tensor, fR: torch.Tensor, D: int, stride: int = 1,
-           kernel_size: int = 1) -> torch.Tensor:
-    """1-D horizontal correlation, (N,H,W,C) x2 -> (N,H,W,D)."""
-    if config.impl["corr1d"] == "plain":
+           kernel_size: int = 1, simfun=None) -> torch.Tensor:
+    """1-D horizontal correlation, (N,H,W,C) x2 -> (N,H,W,D).  A custom
+    ``simfun`` takes ``corr1d_reference`` on every device, as in JAX
+    (``dsmnet_tpu/ops/corr.py:173-176``): the kernels compute the dot
+    product only."""
+    if simfun is not None:
+        corr = corr1d_reference(fL, fR, D, stride, simfun)
+    elif config.impl["corr1d"] == "plain":
         corr = corr1d_plain(fL, fR, D, stride)
     else:
         corr = _Corr1d.apply(fL.contiguous(), fR.contiguous(), D, stride)

@@ -13,7 +13,8 @@ import functools
 import numpy as np
 import torch
 
-__all__ = ["interp_matrix", "resize_bilinear", "upsample2x", "upsample_bilinear"]
+__all__ = ["interp_matrix", "resize_bilinear", "resize_trilinear", "upsample2x",
+           "upsample_bilinear"]
 
 
 @functools.lru_cache(maxsize=None)
@@ -52,6 +53,19 @@ def resize_bilinear(x: torch.Tensor, out_hw: tuple[int, int]) -> torch.Tensor:
         return x
     x = torch.einsum("ih,nhwc->niwc", interp_tensor(oh, h, x), x)
     return torch.einsum("jw,niwc->nijc", interp_tensor(ow, w, x), x)
+
+
+def resize_trilinear(x: torch.Tensor, out_dhw: tuple[int, int, int]) -> torch.Tensor:
+    """Align-corners trilinear resize of NDHWC ``x`` to ``out_dhw`` (torch-0.3
+    ``F.upsample(cost, [D, H, W], mode='trilinear')``, which lifts PSMNet's
+    1/4-resolution costs in the reference)."""
+    n, d, h, w, c = x.shape
+    od, oh, ow = out_dhw
+    if (od, oh, ow) == (d, h, w):
+        return x
+    x = torch.einsum("ed,ndhwc->nehwc", interp_tensor(od, d, x), x)
+    x = torch.einsum("ih,nehwc->neiwc", interp_tensor(oh, h, x), x)
+    return torch.einsum("jw,neiwc->neijc", interp_tensor(ow, w, x), x)
 
 
 def upsample_bilinear(x: torch.Tensor, scale: int) -> torch.Tensor:

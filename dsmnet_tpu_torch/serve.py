@@ -15,9 +15,9 @@ import torch
 
 from . import config
 from .images import normalize_imagenet
-from .interop import load_npz
 from .models import create_model
 from .models.layers import compute_dtype
+from .train.state import load_weights
 
 __all__ = ["Predictor"]
 
@@ -27,7 +27,8 @@ class Predictor:
 
     ``model`` may be given ready-made (weights and BN statistics already
     set); otherwise ``net`` is created with weights drawn from ``seed`` or
-    loaded from ``weights`` (an ``.npz`` of '/'-joined flax paths).  The
+    loaded from ``weights`` (``train.state.load_weights``: the port's ``.pt``,
+    an ``.npz`` of '/'-joined flax paths or a JAX ``.msgpack``).  The
     convolutions run in ``dtype``: float32 by default, as the JAX deploy
     computes, or bfloat16; parameters, BN statistics and the regression
     stay float32."""
@@ -40,7 +41,7 @@ class Predictor:
             model = create_model(net, maxdisparity)
             model.reset_parameters(torch.Generator().manual_seed(seed))
             if weights:
-                load_npz(model, weights)
+                load_weights(weights, model)
         self.model = model.to(self.device).eval()
         self.dtype = dtype
 

@@ -1,0 +1,373 @@
+"""Training driver of the port (``dsmnet_tpu/train/trainer.py``; the
+reference's stereo.py + stereo_supervised.py).
+
+One ``Trainer`` owns the model, its optimizer, the loss spec, the
+checkpoint directory and the epoch loop: per-epoch LR decay, the
+level-weight curriculum (finetune skips it), validation, best-D1
+checkpoints with auto-resume, an atomically written ``loss_history.json``,
+an optional curve PNG (stereo.py:190-248) and ``submit``'s uint16 PNG
+export.  It runs on ``cfg.device`` (``None`` = CUDA; without a card it
+raises).  The weights are drawn from a torch generator seeded with
+``cfg.seed`` (JAX draws them from ``PRNGKey(seed)``), unless
+``path_weight`` names a ``.pt``, ``.npz`` or JAX ``.msgpack`` file.
+Only the supervised loss is ported: a photometric ``loss_name`` raises
+``NotImplementedError`` (ROADMAP.md queue 1, "Self-supervised path").
+"""
+
+from __future__ import annotations
+
+import contextlib
+import dataclasses
+import inspect
+import json
+import logging
+import os
+import time
+
+import numpy as np
+import torch
+
+from .. import config
+from ..images import write_png16
+from ..losses import LossSpec, parse_loss_name
+from ..models import MODELS, create_model
+from ..models.layers import compute_dtype
+from .metrics import AverageMeter
+from .state import (
+    create_train_state,
+    load_checkpoint,
+    load_weights,
+    lr_for_epoch,
+    save_checkpoint,
+)
+from .steps import make_supervised_eval_step, make_supervised_train_step
+
+log = logging.getLogger(__name__)
+
+__all__ = ["TrainConfig", "Trainer"]
+
+# the profiler's window in the first epoch: steps [10, 15)
+PROFILE_STEPS = (10, 15)
+
+
+@dataclasses.dataclass
+class TrainConfig:
+    """CLI-facing configuration (reference main.py:16-38 argparse flags);
+    every field of JAX's, and the device."""
+
+    mode: str = "train"  # train | finetune | test | submit
+    epochs: int = 150
+    net: str = "dispnet"
+    maxdisparity: int = 192
+    loss_name: str = "supervised"
+    lr: float = 1e-4
+    beta1: float = 0.9
+    beta2: float = 0.999
+    lr_epoch0: int = 50
+    lr_stride: int = 20
+    val_freq: int = 1
+    print_freq: int = 20
+    batchsize: int = 1
+    output: str = "output"
+    dataset: str = "kitti2015-tr"
+    dataset_val: str = "kitti2015-tr"
+    path_weight: str = ""
+    flag_model: str = ""
+    seed: int = 0
+    plot_curves: bool = False  # matplotlib curve PNG per validation
+    dtype: str = "float32"  # compute dtype of the convolutions: float32 | bfloat16
+    profile_dir: str = ""  # torch.profiler trace of steps 10-15 of the first epoch
+    remat: bool = False  # recompute heavy blocks in the backward (FLOPs for memory)
+    device: str | None = None  # None = CUDA
+
+
+class Trainer:
+    """Owns model, optimizer, loss spec, checkpoint directory and step
+    functions.  After an epoch, ``lr`` holds its learning rate and
+    ``times`` its per-step ``bt`` (whole step) and ``dt`` (waiting for
+    data, and the batch's copy to the device) in seconds."""
+
+    def __init__(self, cfg: TrainConfig, loader_train=None, loader_val=None):
+        self.cfg = cfg
+        self.device = config.resolve_device(cfg.device)
+        self.loader_train = loader_train
+        self.loader_val = loader_val
+
+        model_kwargs = {}
+        if cfg.remat:
+            if "remat" in inspect.signature(MODELS[cfg.net]).parameters:
+                model_kwargs["remat"] = True
+            else:
+                log.warning("--remat requested but %s has no remat support", cfg.net)
+        model = create_model(cfg.net, cfg.maxdisparity, **model_kwargs)
+        model.reset_parameters(torch.Generator().manual_seed(cfg.seed))
+        # finetune skips the curriculum (stereo.py:46)
+        maxepoch_adjust = 0 if cfg.mode == "finetune" else int(cfg.lr_epoch0 * 3 // 4)
+        self.spec: LossSpec = parse_loss_name(cfg.loss_name, model.count_levels,
+                                              max(maxepoch_adjust, 1))
+        if cfg.mode == "finetune":
+            self.spec = dataclasses.replace(self.spec, maxepoch_weight_adjust=0)
+
+        self.dirpath = os.path.join(
+            cfg.output, f"{cfg.mode}_{cfg.dataset}", f"{cfg.net}_{cfg.loss_name}"
+        )
+
+        self.state, opt = create_train_state(model, self.device, cfg.beta1, cfg.beta2)
+        self.model = self.state.model
+        self.epoch = 0
+        self.best_prec = float("inf")
+        self.lr = cfg.lr
+        self.times: dict[str, list[float]] = {"bt": [], "dt": []}
+
+        if cfg.path_weight and os.path.exists(cfg.path_weight):
+            load_weights(cfg.path_weight, self.model)
+            log.info("loaded pretrained weights: %s", cfg.path_weight)
+
+        if cfg.mode in ("train", "finetune"):
+            restored = load_checkpoint(self.dirpath, self.state)
+            if restored is not None:
+                _, last_epoch, self.best_prec = restored
+                self.epoch = last_epoch + 1
+                log.info("resumed checkpoint at epoch %d", self.epoch)
+
+        self._train_step = make_supervised_train_step(self.model, opt)
+        self._eval_step = make_supervised_eval_step(self.model)
+        log.info("[%s] model: %s, loss: %s, resumed epochs: %d",
+                 cfg.mode, cfg.net, cfg.loss_name, self.epoch)
+
+    # ------------------------------------------------------------- epochs
+
+    def _weights(self, epoch):
+        return self.spec.weights(epoch)
+
+    def _place_batch(self, batch: np.ndarray) -> torch.Tensor:
+        return torch.from_numpy(np.ascontiguousarray(batch)).to(self.device)
+
+    def _ctx(self):
+        if self.cfg.dtype == "float32":
+            return contextlib.nullcontext()
+        return compute_dtype(getattr(torch, self.cfg.dtype))
+
+    def _profiler(self):
+        activities = [torch.profiler.ProfilerActivity.CPU]
+        if self.device.type == "cuda":
+            activities.append(torch.profiler.ProfilerActivity.CUDA)
+        return torch.profiler.profile(activities=activities)
+
+    def train_epoch(self) -> tuple[float, float, float]:
+        cfg = self.cfg
+        self.lr = lr = lr_for_epoch(self.epoch, cfg.lr, cfg.lr_epoch0, cfg.lr_stride)
+        weights = self._weights(self.epoch)
+        log.info("lr: %.6f | level weights: %s", lr, np.asarray(weights).round(3))
+
+        meters = {k: AverageMeter() for k in ("loss", "d1", "epe", "bt", "dt")}
+        self.times = {"bt": [], "dt": []}
+        prof = None
+        t0 = time.time()
+        try:
+            for i, (batch, _names) in enumerate(self.loader_train):
+                # profiler window: steps 10-15 of the first epoch
+                if cfg.profile_dir and self.epoch == 0:
+                    if i == PROFILE_STEPS[0]:
+                        prof = self._profiler()
+                        prof.start()
+                    elif i == PROFILE_STEPS[1]:
+                        self._stop_profile(prof)
+                        prof = None
+                        t0 = time.time()  # the trace's export is no wait for data
+                n = batch.shape[0]
+                batch = self._place_batch(batch)
+                meters["dt"].update(time.time() - t0)
+                with self._ctx():
+                    m = self._train_step(self.state, batch, lr, weights)
+                m = {k: v.item() for k, v in m.items()}
+                meters["loss"].update(m["loss"], n)
+                if m["d1"] >= 0:
+                    meters["d1"].update(m["d1"], n)
+                    meters["epe"].update(m["epe"], n)
+                meters["bt"].update(time.time() - t0)
+                self.times["dt"].append(meters["dt"].val)
+                self.times["bt"].append(meters["bt"].val)
+                t0 = time.time()
+                if i % cfg.print_freq == 0:
+                    log.info(
+                        "Train: [%d][%d/%d] | Time %.3f (%.3f) | Data %.3f (%.3f) | "
+                        "Loss %.4f (%.4f) | D1 %.3f (%.3f) | EPE %.3f (%.3f)",
+                        self.epoch, i, len(self.loader_train),
+                        meters["bt"].val, meters["bt"].avg,
+                        meters["dt"].val, meters["dt"].avg,
+                        meters["loss"].val, meters["loss"].avg,
+                        meters["d1"].val, meters["d1"].avg,
+                        meters["epe"].val, meters["epe"].avg,
+                    )
+        finally:
+            # an epoch shorter than the window still writes its trace
+            self._stop_profile(prof)
+        log.info(
+            "mean train loss: %.3f | mean D1: %.3f | mean EPE: %.3f",
+            meters["loss"].avg, meters["d1"].avg, meters["epe"].avg,
+        )
+        return meters["loss"].avg, meters["epe"].avg, meters["d1"].avg
+
+    def _stop_profile(self, prof) -> None:
+        if prof is None:
+            return
+        prof.stop()
+        os.makedirs(self.cfg.profile_dir, exist_ok=True)
+        path = os.path.join(self.cfg.profile_dir,
+                            f"trace_steps{PROFILE_STEPS[0]}-{PROFILE_STEPS[1]}.json")
+        prof.export_chrome_trace(path)
+        log.info("profiler trace: %s", path)
+
+    def validate(self) -> tuple[float, float, float]:
+        weights = self._weights(max(self.epoch, 0))
+        meters = {k: AverageMeter() for k in ("loss", "d1", "epe")}
+        for i, (batch, _names) in enumerate(self.loader_val):
+            n = batch.shape[0]
+            batch = self._place_batch(batch)
+            with self._ctx():
+                m = self._eval_step(self.state, batch, weights)
+            m = {k: m[k].item() for k in ("loss", "d1", "epe")}
+            meters["loss"].update(m["loss"], n)
+            if m["d1"] >= 0:
+                meters["d1"].update(m["d1"], n)
+                meters["epe"].update(m["epe"], n)
+            if i % self.cfg.print_freq == 0:
+                log.info(
+                    "Val: [%d][%d/%d] | Loss %.4f (%.4f) | D1 %.3f (%.3f) | "
+                    "EPE %.3f (%.3f)",
+                    self.epoch, i, len(self.loader_val),
+                    meters["loss"].val, meters["loss"].avg,
+                    meters["d1"].val, meters["d1"].avg,
+                    meters["epe"].val, meters["epe"].avg,
+                )
+        log.info(
+            "mean val loss: %.3f | mean D1: %.3f | mean EPE: %.3f",
+            meters["loss"].avg, meters["d1"].avg, meters["epe"].avg,
+        )
+        return meters["loss"].avg, meters["epe"].avg, meters["d1"].avg
+
+    def start(self):
+        """Epoch loop with validation, checkpoints and history
+        (stereo.py:190-248).  Returns the validation's (loss, epe, d1) in
+        test mode, else the loss history."""
+        cfg = self.cfg
+        if cfg.mode == "test":
+            return self.validate()
+
+        hist_path = os.path.join(self.dirpath, "loss_history.json")
+        hist = {
+            "loss": [], "epe": [], "d1": [],
+            "epochs_val": [], "loss_val": [], "epe_val": [], "d1_val": [],
+        }
+        if os.path.exists(hist_path):
+            with open(hist_path) as f:
+                hist = json.load(f)
+
+        t_start = time.time()
+        epoch0 = self.epoch
+        for epoch in range(epoch0, cfg.epochs):
+            self.epoch = epoch
+            mloss, mepe, md1 = self.train_epoch()
+            hist["loss"].append(mloss)
+            hist["epe"].append(mepe)
+            hist["d1"].append(md1)
+
+            if epoch % cfg.val_freq == 0 or epoch == cfg.epochs - 1:
+                vloss, vepe, vd1 = self.validate()
+                hist["epochs_val"].append(epoch)
+                hist["loss_val"].append(vloss)
+                hist["epe_val"].append(vepe)
+                hist["d1_val"].append(vd1)
+
+                is_best = vd1 < self.best_prec
+                self.best_prec = min(vd1, self.best_prec)
+                save_checkpoint(self.dirpath, self.state, epoch, self.best_prec, is_best)
+                os.makedirs(self.dirpath, exist_ok=True)
+                with open(hist_path + ".tmp", "w") as f:
+                    json.dump(hist, f)
+                os.replace(hist_path + ".tmp", hist_path)
+                if cfg.plot_curves:
+                    self._plot_curves(hist)
+
+            elapsed = (time.time() - t_start) / 3600.0
+            total = elapsed * (cfg.epochs - epoch0) / max(epoch + 1 - epoch0, 1)
+            log.info("Progress: %.2f | %.2f (hour)", elapsed, total)
+        return hist
+
+    def _plot_curves(self, hist):
+        """3-panel loss/EPE/D1 curve PNG (stereo.py:232-243)."""
+        import matplotlib
+
+        matplotlib.use("Agg")
+        import matplotlib.pyplot as plt
+
+        cfg = self.cfg
+        fig, axes = plt.subplots(1, 3, figsize=(18, 5))
+        for ax, key, label in zip(axes, ("loss", "epe", "d1"), ("Loss", "EPE", "D1")):
+            ax.plot(hist[key], label="train")
+            ax.plot(hist["epochs_val"], hist[f"{key}_val"], label="val")
+            ax.set_xlabel("epoch")
+            ax.set_ylabel(label)
+            ax.legend()
+        fig.savefig(
+            f"check_{cfg.mode}_{cfg.dataset}_{cfg.net}_{cfg.loss_name}.png"
+        )
+        plt.close(fig)
+
+    # ------------------------------------------------------------- submit
+
+    def submit(self, out_dir: str = "submit") -> dict:
+        """Inference and PNG export loop (stereo.py:115-187): per batch, the
+        first sample's disparity as a KITTI uint16 PNG (disparity x 256, at
+        1/256 px), its time and, with ground truth, its D1 and EPE; the
+        results go to ``<out_dir>/<dataset>_<flag_model>.json``, and a run
+        that finds that file returns it (stereo.py:124-137)."""
+        cfg = self.cfg
+        dirpath = os.path.join(out_dir, f"{cfg.dataset}_{cfg.flag_model}")
+        if os.path.exists(dirpath + ".json"):
+            with open(dirpath + ".json") as f:
+                prior = json.load(f)
+            for i, name in enumerate(prior["filename"]):
+                if prior["D1"]:
+                    log.info("submit(cached): %s | time %.3f D1 %.3f epe %.3f",
+                             name, prior["time"][i], prior["D1"][i], prior["epe"][i])
+                else:
+                    log.info("submit(cached): %s | time %.3f", name, prior["time"][i])
+            return prior
+        os.makedirs(dirpath, exist_ok=True)
+        results = {"filename": [], "time": [], "D1": [], "epe": []}
+
+        weights = self._weights(0)
+        t_end = time.time()
+        for batch, names in self.loader_val:
+            batch = self._place_batch(batch)
+            has_gt = batch.shape[-1] >= 7
+            if not has_gt:
+                pad = batch.new_zeros(batch.shape[:-1] + (1,))
+                batch7 = torch.cat([batch[..., :6], pad], dim=-1)
+            else:
+                batch7 = batch[..., :7]
+            # outside the compute dtype, as JAX's submit runs its eval step
+            m = self._eval_step(self.state, batch7, weights)
+            disp = m["disp"].float().cpu().numpy()
+            results["filename"].append(names[0])
+            results["time"].append(time.time() - t_end)
+            t_end = time.time()
+            if has_gt:
+                results["D1"].append(m["d1"].item())
+                results["epe"].append(m["epe"].item())
+                log.info("submit: %s | time %.3f D1 %.3f epe %.3f",
+                         names[0], results["time"][-1], results["D1"][-1],
+                         results["epe"][-1])
+            else:
+                log.info("submit: %s | time %.3f", names[0], results["time"][-1])
+            out_name = os.path.splitext(names[0])[0] + ".png"
+            # KITTI submission convention: uint16 PNG at 1/256 px precision
+            # (the reference wrote the raw float through cv2, truncating it
+            # to uint8, stereo.py:172-174; JAX fixed that)
+            d16 = np.clip(disp[0, :, :, 0] * 256.0, 0, 65535).astype(np.uint16)
+            write_png16(os.path.join(dirpath, out_name), d16)
+        with open(dirpath + ".json", "w") as f:
+            json.dump(results, f)
+        return results

@@ -1,7 +1,10 @@
 """Import boundary and device rules of the PyTorch port (dsmnet_tpu_torch).
 
   * The port and chip_smoke.py import nothing of JAX, flax or the JAX
-    package ``dsmnet_tpu``: checked in a fresh interpreter.
+    package ``dsmnet_tpu``, and nothing of cv2, msgpack or matplotlib,
+    which the card's machine may lack (the modules that read image files,
+    JAX's msgpack files or plot import them when called): checked in a
+    fresh interpreter.
   * Entry points default to CUDA and raise when it is absent: checked in a
     subprocess with every card hidden, so the check means the same on any
     host.
@@ -46,16 +49,22 @@ for name in names:
 import chip_smoke
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax", "dsmnet_tpu"))
-print(len(names), bad)
+lazy = sorted(m for m in sys.modules if m.split(".")[0] in ("cv2", "msgpack", "matplotlib"))
+print(len(names), "|".join(names), bad, lazy)
 """
 
 
 def test_port_imports_no_jax():
     res = _run(_IMPORT_ALL)
     assert res.returncode == 0, res.stderr
-    count, bad = res.stdout.strip().split(" ", 1)
-    assert int(count) >= 15, res.stdout  # every module of the package was reached
+    count, names, bad, lazy = res.stdout.strip().split(" ", 3)
+    assert int(count) >= 41, res.stdout  # every module of the package was reached
+    for module in ("cli", "data.dataset", "data.transforms", "data.io", "data.paths",
+                   "data.check", "train.trainer", "train.state", "utils.benchtime",
+                   "utils.evaluate", "utils.viz"):
+        assert f"dsmnet_tpu_torch.{module}" in names.split("|"), module
     assert bad == "[]", f"the port pulled in {bad}"
+    assert lazy == "[]", f"importing the port pulled in {lazy}"
 
 
 _ENTRY_POINTS = {
@@ -68,6 +77,11 @@ _ENTRY_POINTS = {
     "create_train_state": "from dsmnet_tpu_torch.models import create_model\n"
                           "from dsmnet_tpu_torch.train import create_train_state\n"
                           "create_train_state(create_model('psmnet', 16))",
+    "cli_train": "from dsmnet_tpu_torch import cli\n"
+                 "cli.main(['--mode', 'train', '--net', 'dispnet', '--maxdisparity', '16',"
+                 " '--dataset', 'synthetic'])",
+    "trainer": "from dsmnet_tpu_torch.train import TrainConfig, Trainer\n"
+               "Trainer(TrainConfig(net='dispnet', maxdisparity=16))",
 }
 
 

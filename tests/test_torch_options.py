@@ -7,20 +7,32 @@
     running statistics to 1e-12 relative (the backward adds the same terms
     in another order; the recomputation updates no statistic; gradients
     that are 0 in exact arithmetic are held to 1e-12 absolute), and the
-    remat'd modules really run twice.
+    remat'd modules really run twice;
+  * PSMNet's ``fused_stem=False``: the masked concat volume and a plain
+    ConvBN ``dres0_0``, against the JAX model with ``fused_stem=False``, a
+    train-mode forward in float64: the three disparities and the updated BN
+    statistics to 1e-9 (the JAX regression's float32 casts read as float64,
+    as in ``test_torch_train_zoo.py``).
 
-Two tests (``--dist loadfile`` queues a file of three or fewer behind
-``test_train_zoo.py``).
+Three tests (``--dist loadfile`` queues a file of three or fewer behind
+``test_train_zoo.py``); DispNetC's ``corr_d`` and every model's
+``count_levels`` are in ``test_torch_zoo.py``.
 """
 
+import jax
+import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
 import chip_smoke
+from dsmnet_tpu.models import create_model as j_create_model
+from dsmnet_tpu.ops import regression as j_regression
+from dsmnet_tpu_torch import interop
 from dsmnet_tpu_torch.models import create_model as t_create_model
 from dsmnet_tpu_torch.train import create_train_state, make_supervised_train_step
-from test_torch_train import _relerr
+from test_torch_train import _flat, _relerr, _seeded_flax_variables
+from test_torch_train_zoo import _NoFloat32
 
 
 @pytest.fixture(autouse=True)
@@ -78,3 +90,34 @@ def test_remat_step_matches_plain_step_f64(name, rng):
     b0, b1 = dict(m0.named_buffers()), dict(m1.named_buffers())
     for k, t in b0.items():
         assert _relerr(b1[k].numpy(), t.numpy()) <= 1e-12, (k, _relerr(b1[k].numpy(), t.numpy()))
+
+
+def test_psmnet_without_fused_stem_matches_jax_f64(rng, monkeypatch):
+    maxdisp, h, w = 16, 256, 256
+    imL, imR = rng.rand(1, h, w, 3), rng.rand(1, h, w, 3)
+    tm = t_create_model("psmnet", maxdisp, fused_stem=False).reset_parameters(
+        torch.Generator().manual_seed(0))
+    assert tuple(tm.dres0_0.Conv_0.kernel.shape) == (3, 3, 3, 64, 32)
+    monkeypatch.setattr(j_regression, "jnp", _NoFloat32())
+    with jax.enable_x64():
+        jm = j_create_model("psmnet", maxdisparity=maxdisp, fused_stem=False)
+        v = _seeded_flax_variables(jm, tm, h, w, rng)
+        v_np = jax.tree.map(np.asarray, v)
+        fwd = jax.jit(lambda v, a, b: jm.apply(v, a, b, train=True, mutable=["batch_stats"]))
+        (_, ref), mut = fwd(v, jnp.asarray(imL), jnp.asarray(imR))
+        ref = [np.asarray(d) for d in ref]
+        ref_stats = _flat(mut["batch_stats"])
+
+    tm = t_create_model("psmnet", maxdisp, fused_stem=False).double()
+    interop.load_flax_variables(tm, v_np["params"], v_np["batch_stats"])
+    tm.train()
+    with torch.no_grad():
+        _, outs = tm(torch.from_numpy(imL), torch.from_numpy(imR))
+    assert len(outs) == len(ref) == 3
+    for o, r in zip(outs, ref):
+        assert o.shape == r.shape and o.dtype == torch.float64
+        assert _relerr(o.numpy(), r) <= 1e-9, _relerr(o.numpy(), r)
+    buffers = dict(tm.named_buffers())
+    assert set(buffers) == set(ref_stats)
+    for k, t in buffers.items():
+        assert _relerr(t.numpy(), ref_stats[k]) <= 1e-9, (k, _relerr(t.numpy(), ref_stats[k]))

@@ -19,6 +19,8 @@ those on the card):
   * which ops reach which kernel wrapper, as the launch counters show it
     on the card, by shims around the wrappers, in a forward and in a train
     step (the tables ``chip_smoke.py`` holds the card to);
+  * DispNetC with another ``corr_d`` against JAX, float64, and every
+    model's ``count_levels``, as the JAX factory takes it.
 """
 
 import collections
@@ -32,6 +34,7 @@ import torch
 
 import chip_smoke
 from dsmnet_tpu.models import create_model as j_create_model
+from dsmnet_tpu.models import dispnet as j_dispnet
 from dsmnet_tpu.ops import corr as j_corr
 from dsmnet_tpu.ops import cost_volume as j_cost_volume
 from dsmnet_tpu.ops import softargmin as j_softargmin
@@ -45,6 +48,7 @@ from dsmnet_tpu_torch.ops import fused_costvol as t_fused
 from dsmnet_tpu_torch.ops.softargmin import soft_argmin
 from dsmnet_tpu_torch.serve import Predictor
 from dsmnet_tpu_torch.train import create_train_state, make_supervised_train_step
+from test_torch_train_zoo import _NoFloat32
 
 
 @pytest.fixture(autouse=True)
@@ -327,3 +331,61 @@ def test_predictor_serves_model_on_cpu(name, rng):
     disp = server.predict(rng.rand(64, 128, 3), rng.rand(64, 128, 3))
     assert disp.shape == (1, 64, 128) and disp.dtype == np.float32
     assert np.isfinite(disp).all() and disp.min() >= 1e-6 and disp.max() <= 128
+
+
+def test_dispnetc_corr_d_matches_jax(rng, monkeypatch):
+    """DispNetC with ``corr_d`` = 21 (the JAX constructor field,
+    ``dispnet.py:112``): conv3a takes 21 + 64 channels, and the eval-mode
+    forward matches the JAX model's in float64 to 1e-9 (the JAX heads'
+    float32 cast read as float64, as in ``test_torch_train_zoo.py``)."""
+    h, w = 64, 128
+    imL, imR = rng.rand(1, h, w, 3), rng.rand(1, h, w, 3)
+    tm = t_create_model("dispnetcorr", 192, corr_d=21).reset_parameters(
+        torch.Generator().manual_seed(0))
+    assert tuple(tm.conv3a.Conv_0.kernel.shape) == (5, 5, 85, 256)
+    jm = j_create_model("dispnetcorr", maxdisparity=192, corr_d=21)
+    variables = _flax_variables(jm, tm, h, w)
+    monkeypatch.setattr(j_dispnet, "jnp", _NoFloat32())
+    with jax.enable_x64():
+        jv = jax.tree.map(lambda a: jnp.asarray(a, jnp.float64), variables)
+        apply = jax.jit(lambda v, a, b: jm.apply(v, a, b, train=False)[1])
+        ref = [np.asarray(d) for d in apply(jv, jnp.asarray(imL), jnp.asarray(imR))]
+    tm = t_create_model("dispnetcorr", 192, corr_d=21).double()
+    interop.load_flax_variables(tm, variables["params"])
+    with torch.no_grad():
+        _, outs = tm.eval()(torch.from_numpy(imL), torch.from_numpy(imR))
+    assert len(outs) == len(ref) == 7
+    for o, r in zip(outs, ref):
+        assert o.shape == r.shape and o.dtype == torch.float64
+        assert np.linalg.norm(o.numpy() - r) <= 1e-9 * np.linalg.norm(r)
+
+
+@pytest.mark.parametrize("name", sorted(chip_smoke.TRAIN_LAUNCHES))
+def test_count_levels_as_jax_factory(name):
+    """``count_levels`` defaults to the JAX model's field and is taken as a
+    keyword by the factory, as JAX's is (it sets the loss levels only)."""
+    assert t_create_model(name, 32).count_levels == j_create_model(name, 32).count_levels
+    assert t_create_model(name, 32, count_levels=3).count_levels == 3 == \
+        j_create_model(name, 32, count_levels=3).count_levels
+
+
+def test_psmnet_without_fused_stem_routes_to_volume_kernel(monkeypatch):
+    """PSMNet with ``fused_stem=False`` reaches H (the volume) and B for
+    dres0_0 (64 -> 32), never J, as often as chip_smoke.py's
+    ``serve_psmnet_volume`` path expects per request."""
+    calls = {}
+
+    def shim(fn, key):
+        def counted(*args, **kwargs):
+            calls[key] = calls.get(key, 0) + 1
+            return fn(*args, **kwargs)
+        return counted
+
+    for module, attr, key in _WRAPPERS:
+        monkeypatch.setattr(module, attr, shim(getattr(module, attr), key))
+    tm = t_create_model("psmnet", 32, fused_stem=False).reset_parameters(
+        torch.Generator().manual_seed(0)).eval()
+    gen = torch.Generator().manual_seed(1)
+    with torch.no_grad():
+        tm(torch.rand(1, 256, 256, 3, generator=gen), torch.rand(1, 256, 256, 3, generator=gen))
+    assert calls == chip_smoke.SERVE_LAUNCHES["psmnet_volume"]
