@@ -89,7 +89,20 @@ count (``trainer_workers``), and prints no ``ok`` line either.
    loader's worker threads must have ended.  Printed: each epoch's median
    ``bt`` (whole step) and ``dt`` (waiting for data), frames/s, peak
    memory and losses.
-11. The script's command time, one ``{"kernels": [...]}`` line (launches
+11. The self-supervised path (a -mask loss: the 384x768 pairs cropped by a
+   64-pixel border to 256x640 views, colour augmented on the card, two
+   weight-shared forwards, the photometric pyramid loss): DispNetC's
+   ``Cap_ds-mask`` gradients in float32 through I and its VJP against
+   float64, next to the plain path's (``selfsup_grad_f32``, one pair, the
+   draws of step 0); bf16 steps at batch 4 on one fixed batch of
+   synthetic pairs, DispNetC (``Cap_ds-mask``, 8 steps) and PSMNet
+   (``depthmono-mask``, 4 steps), at lr 1e-4 (``train_selfsup_*_bf16``):
+   every step launches SELFSUP_LAUNCHES (twice the supervised step's, at
+   the views' shapes), the eval step's loss on the batch falls, and one
+   profiled step gives the device ms under the loss's ``photometric_loss``
+   span; then 10.'s trainer for DispNetC with ``--loss_name Cap_ds-mask``
+   (``trainer_selfsup_bf16``: an eval batch is two forwards).
+12. The script's command time, one ``{"kernels": [...]}`` line (launches
    and times on each kernel's first path, "primary": the train step for
    A-G and J, GCNet's request for H, DispNetC's for I, iResNet's step for
    I's VJP; and per path), the card's
@@ -234,6 +247,26 @@ TRAINER_ARGS = ["--net", "psmnet", "--dataset", "synthetic", "--batchsize", str(
 TRAINER_STEPS, TRAINER_VAL_BATCHES = 64 // TRAIN_BATCH, 8 // TRAIN_BATCH
 TRAINER_TEST_SAMPLES = 16  # --mode test and submit: the synthetic set of 16 pairs
 
+# the self-supervised path: a -mask loss crops a border of SELFSUP_NEDGE, so
+# a 384x768 pair puts 256x640 views into the model (the KITTI recipes'
+# crop, scripts/train_kitti_selfsup.sh); name -> (path, loss name, batch,
+# steps, Adam's lr): DispNetC as the KITTI recipe trains it, PSMNet as
+# the JAX bench's --selfsup mode (bench.py:102-130)
+SELFSUP_NEDGE = 64
+SH, SW = H - 2 * SELFSUP_NEDGE, W - 2 * SELFSUP_NEDGE
+SELFSUP_RUNS = {"dispnetcorr": ("train_selfsup_dispnetc", "Cap_ds-mask", 4, 8, 1e-4),
+                "psmnet": ("train_selfsup_psmnet", "depthmono-mask", 4, 4, 1e-4)}
+# launches per self-supervised step: two weight-shared forwards and their
+# backward, each the supervised step's kernels at the 256x640 views
+SELFSUP_LAUNCHES = {name: {k: 2 * v for k, v in TRAIN_LAUNCHES[name].items()}
+                    for name in SELFSUP_RUNS}
+SELFSUP_SEED = 1  # the draws of step i: color_aug.selfsup_generator(SELFSUP_SEED, i)
+# the trainer's command line for the self-supervised path (trainer_selfsup_bf16)
+TRAINER_SELFSUP_ARGS = ["--net", "dispnetcorr", "--loss_name", "Cap_ds-mask", "--dataset",
+                        "synthetic", "--batchsize", str(TRAIN_BATCH), "--crop_h", str(H),
+                        "--crop_w", str(W), "--maxdisparity", str(MAXDISP), "--shift_max", "0",
+                        "--dtype", "bfloat16", "--lr", "1e-4"]
+
 SLOW_CALL_MS = 20.0
 
 T_START = time.perf_counter()
@@ -306,7 +339,9 @@ def kernel_specs():
     per request), "train" (PSMNet's train step, per step), "serve_gcnet",
     "serve_psmnet_basic", "serve_dispnetc", "serve_iresnet" (per request),
     "train_gcnet", "train_psmnet_basic", "train_dispnetc", "train_iresnet"
-    (per step, at TRAIN_RUNS' batch).  Every shape a path launches has a
+    (per step, at TRAIN_RUNS' batch), "train_selfsup_dispnetc",
+    "train_selfsup_psmnet" (per self-supervised step), "trainer" and
+    "trainer_selfsup" (per epoch of the trainer phases).  Every shape a path launches has a
     row, and main() holds the rows' launches to the path's counters.
     "primary" names the path whose launches and times head the kernel's
     entry in the ``{"kernels": ...}`` line.  A conv kernel (kind "conv")
@@ -320,9 +355,11 @@ def kernel_specs():
 
     D4, H2, W2, H4, W4 = MAXDISP // 4, H // 2, W // 2, H // 4, W // 4
     D2 = MAXDISP // 2
+    SH4, SW4 = SH // 4, SW // 4
     # the batch of each train path
     B, Bg, Bb, Bc, Bi = (TRAIN_RUNS[n][1] for n in ("psmnet", "gcnet", "psmnet_basic",
                                                     "dispnetcorr", "iresnet"))
+    Bs = SELFSUP_RUNS["dispnetcorr"][2]
     vol32 = lambda n: (n, D4, H4, W4, 32)
     vol64 = lambda n: (n, D4 // 2, H4 // 2, W4 // 2, 64)
     vol64s = lambda n: (n, D4 // 4, H4 // 4, W4 // 4, 64)
@@ -439,7 +476,9 @@ def kernel_specs():
                           ((1, H2, W2, 64), (1, H2, W2, 64), 1, 41, 2)],
         "train_dispnetc": [((Bc, H4, W4, 128), (Bc, H4, W4, 128), 1, 41, 1)],
         "train_iresnet": [((Bi, H4, W4, 128), (Bi, H4, W4, 128), 1, 81, 1),
-                          ((Bi, H2, W2, 64), (Bi, H2, W2, 64), 1, 41, 2)]}
+                          ((Bi, H2, W2, 64), (Bi, H2, W2, 64), 1, 41, 2)],
+        # the self-supervised step: two forwards of the 256x640 views
+        "train_selfsup_dispnetc": [((Bs, SH4, SW4, 128), (Bs, SH4, SW4, 128), 2, 41, 1)]}
     # W not a multiple of the 64-column tile (65 and 130: one past a tile),
     # W < 64, D S >= W (stride 1 and 2), stride 2 at C = 32, batch 2 with odd
     # H, C = 24 (staged as 32, zeros above C), D = 1 and 3, stride 3 (I's
@@ -449,6 +488,11 @@ def kernel_specs():
                   ((1, 3, 130, 128), 41, 2), ((2, 5, 65, 32), 41, 2), ((1, 2, 40, 24), 9, 1),
                   ((1, 1, 7, 64), 3, 1), ((1, 2, 70, 64), 1, 1), ((1, 3, 70, 64), 9, 3)]
     g_of = lambda x, D: (*x[:-1], D)
+    # the self-supervised trainer's epoch (trainer_selfsup): TRAINER_STEPS
+    # steps, two correlations and two VJPs each, and TRAINER_VAL_BATCHES
+    # eval batches of two 384x768 forwards (the VJP rows: the first row's)
+    trainer_corr = [((Bs, SH4, SW4, 128), (Bs, SH4, SW4, 128), 2 * TRAINER_STEPS, 41, 1),
+                    ((Bs, H4, W4, 128), (Bs, H4, W4, 128), 2 * TRAINER_VAL_BATCHES, 41, 1)]
 
     maps = lambda n, h, w, o=32: (n, h, w, 9 * o)  # a stem tap map: 9 taps of O channels
 
@@ -642,7 +686,8 @@ def kernel_specs():
              replaces="dsmnet_tpu/ops/corr.py:88", primary="serve_dispnetc",
              kernel=corr.corr1d_kernel, plain=corr.corr1d_plain, library=lib_corr1d,
              out=lambda x, y, D, stride: (*x[:-1], D), flops=corr_flops,
-             paths=corr_paths, edges=[(x, x, D, s) for x, D, s in corr_edges]),
+             paths={**corr_paths, "trainer_selfsup": trainer_corr},
+             edges=[(x, x, D, s) for x, D, s in corr_edges]),
         # the VJP (JAX: jnp, no Pallas kernel) at the forward's train shapes;
         # the wrapper is looked up at the call, so that this table also
         # serves a tree whose correlation has no VJP kernel
@@ -654,7 +699,8 @@ def kernel_specs():
              # both sides' products: twice the forward's
              flops=lambda x, y, out, gs, stride: 2 * corr_flops(x, y, out, gs[-1], stride),
              paths={path: [(x, y, n, g_of(x, D), s) for x, y, n, D, s in rows]
-                    for path, rows in corr_paths.items() if path.startswith("train")},
+                    for path, rows in {**corr_paths, "trainer_selfsup": trainer_corr[:1]}.items()
+                    if path.startswith("train")},
              edges=[(x, x, g_of(x, D), s) for x, D, s in corr_edges]),
         dict(name="fused_costvol", kind="stem", route="cuda",
              source="dsmnet_tpu_torch/csrc/fused_costvol.cu",
@@ -692,6 +738,13 @@ def kernel_specs():
                 ((1, D4, H4, W4, 64), k3(64, 32), 1)]
         elif spec["name"] == "cost_volume":
             paths["serve_psmnet_volume"] = paths["serve_psmnet_basic"]
+        # PSMNet's self-supervised step: the supervised step's shapes at the
+        # 256x640 views (H and W of every activation scaled, D and the
+        # kernels kept), twice (two forwards and their backward)
+        if "train" in paths:
+            paths["train_selfsup_psmnet"] = [
+                (selfsup_shape(a), b if spec["kind"] == "conv" else selfsup_shape(b), 2 * n, *args)
+                for a, b, n, *args in paths["train"]]
         # the trainer's epoch: TRAINER_STEPS train steps and TRAINER_VAL_BATCHES
         # eval forwards at the train batch (a request's shapes at batch B; both
         # operands of the stem's assembly are per sample)
@@ -703,6 +756,13 @@ def kernel_specs():
                 + [(batched(a), batched(b) if per_sample else b, n * TRAINER_VAL_BATCHES, *args)
                    for a, b, n, *args in paths.get("serve", [])])
     return specs
+
+
+def selfsup_shape(shape):
+    """An activation's shape (N,H,W,C) or (N,D,H,W,C) of the supervised
+    384x768 step at the self-supervised step's SH x SW views."""
+    *lead, h, w, c = shape
+    return (*lead, h * SH // H, w * SW // W, c)
 
 
 def kernel_inputs(spec, a_shape, b_shape, args, dev, gen):
@@ -1231,13 +1291,14 @@ def serve_model(name: str, dev, n_requests: int) -> dict:
     return counts[-1]
 
 
-def corr_backward(prof) -> dict:
-    """The correlation's backward in a profile: the device ms and the
-    kernel launches under each ``_Corr1dBackward`` autograd node (its VJP
-    and whatever it runs: the plain VJP's elementwise and indexing kernels,
-    or the VJP kernel and a copy of a strided cotangent), summed over the
-    nodes, and the launches and ms by kernel name."""
-    name = "_Corr1dBackward"
+def under(prof, name: str) -> dict:
+    """The device ms and kernel launches under each host-side event of a
+    profile whose name holds ``name`` (outermost ones only), summed over
+    them, and the launches and ms by kernel name: under ``_Corr1dBackward``
+    the correlation's backward (its VJP and whatever it runs: the plain
+    VJP's elementwise and indexing kernels, or the VJP kernel and a copy of
+    a strided cotangent); under the ``photometric_loss`` span of
+    ``train.steps.selfsup_loss`` the self-supervised loss's forward."""
 
     def inside(e):
         p = e.cpu_parent
@@ -1250,7 +1311,8 @@ def corr_backward(prof) -> dict:
     def kernels(e):
         return list(e.kernels) + [k for c in e.cpu_children for k in kernels(c)]
 
-    nodes = [e for e in prof.events() if name in e.name and not inside(e)]
+    nodes = [e for e in prof.events() if name in e.name and not inside(e)
+             and e.device_type == torch.autograd.DeviceType.CPU]
     by_name = {}
     for k in (k for e in nodes for k in kernels(e)):
         n, ms = by_name.get(k.name[:80], (0, 0.0))
@@ -1262,7 +1324,8 @@ def corr_backward(prof) -> dict:
 def profile(tag: str, fn, top: int = 25) -> None:
     """Where one call's time goes: device time by kernel under
     torch.profiler, the device's busy share of the call's wall time, and
-    the correlation's backward (``corr_backward``) where the call has one."""
+    the correlation's backward (``corr_backward``) and the photometric loss
+    (``photometric_loss``) where the call has them."""
     from torch.profiler import ProfilerActivity, profile as torch_profile
 
     with torch_profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -1290,9 +1353,11 @@ def profile(tag: str, fn, top: int = 25) -> None:
                             "cost_volume_kernel", "corr1d_", "fused_costvol_kernel")))
     row = {"wall_ms": wall_ms, "device_ms": device_ms, "device_busy_share": device_ms / wall_ms,
            "ported_kernels_ms": ported_ms, "top_kernels_ms_count": kernels[:top]}
-    corr_bwd = corr_backward(prof)
-    if corr_bwd["nodes"]:
-        row["corr_backward"] = corr_bwd
+    for key, name in (("corr_backward", "_Corr1dBackward"),
+                      ("photometric_loss", "photometric_loss")):
+        spans = under(prof, name)
+        if spans["nodes"]:
+            row[key] = spans
     emit({tag: row})
 
 
@@ -1302,6 +1367,16 @@ def train_batch(n: int, dev, h: int = H, w: int = W) -> torch.Tensor:
     b = rng.rand(n, h, w, 7).astype(np.float32)
     b[..., 6] = b[..., 6] * 100 + 1
     return torch.from_numpy(b).to(dev)
+
+
+def selfsup_batch(n: int, dev, h: int = H, w: int = W) -> torch.Tensor:
+    """A fixed batch of ``n`` consistent synthetic h x w pairs with their
+    disparity, in [0, 1] as the self-supervised loaders give them
+    (``data.SyntheticStereoDataset``, samples 0 .. n - 1)."""
+    from dsmnet_tpu_torch.data import SyntheticStereoDataset, selfsup_eval_transform
+
+    ds = SyntheticStereoDataset(n=n, hw=(h, w), transform=selfsup_eval_transform())
+    return torch.from_numpy(np.stack([ds[i][0] for i in range(n)])).to(dev)
 
 
 def loss_weights(model) -> np.ndarray:
@@ -1330,22 +1405,36 @@ def zero_gradient_params(model) -> set[str]:
 
 
 def check_gradients(dev, name: str = "psmnet", h: int = H, w: int = W,
-                    maxdisp: int = MAXDISP, tag: str = "grad_f32") -> None:
+                    maxdisp: int = MAXDISP, tag: str = "grad_f32",
+                    loss_name: str = "supervised") -> None:
     """Every parameter's float32 gradient of ``name`` through the kernels
     against the float64 plain model, next to the float32 plain path's own
-    error, on one h x w pair."""
+    error, on one h x w pair: of the supervised loss, or of a photometric
+    ``loss_name``'s self-supervised step (the two forwards, the loss of
+    ``train.steps.selfsup_loss``) with the draws of step 0 injected."""
     from dsmnet_tpu_torch import config
-    from dsmnet_tpu_torch.losses import supervised_pyramid_loss
+    from dsmnet_tpu_torch.losses import parse_loss_name, supervised_pyramid_loss
     from dsmnet_tpu_torch.ops import _build
+    from dsmnet_tpu_torch.train import draw_selfsup_params, selfsup_generator, selfsup_loss
 
     model = seeded_model(dev, name, maxdisp).train()
-    batch = train_batch(1, dev, h, w)
-    weights = loss_weights(model)
+    spec = parse_loss_name(loss_name, model.count_levels)
+    if spec.supervised:
+        batch, weights = train_batch(1, dev, h, w), loss_weights(model)
+        expected = TRAIN_LAUNCHES[name]
+    else:
+        batch, weights = selfsup_batch(1, dev, h, w), spec.weights(1)
+        draws = draw_selfsup_params(selfsup_generator(SELFSUP_SEED, 0), 1)
+        expected = SELFSUP_LAUNCHES[name]
 
     def grads(m, b):
         m.zero_grad(set_to_none=True)
-        scales, disps = m(b[..., :3], b[..., 3:6])
-        loss = supervised_pyramid_loss(b[..., 6:7], disps, scales, weights)
+        if spec.supervised:
+            scales, disps = m(b[..., :3], b[..., 3:6])
+            loss = supervised_pyramid_loss(b[..., 6:7], disps, scales, weights)
+        else:
+            loss = selfsup_loss(m, spec.photo, b, SELFSUP_NEDGE if spec.flag_mask else 0,
+                                weights, draws.to(b.device))[0]
         loss.backward()
         return loss.item(), {n: p.grad.double() for n, p in m.named_parameters()}
 
@@ -1372,9 +1461,9 @@ def check_gradients(dev, name: str = "psmnet", h: int = H, w: int = W,
     # the parameters nearest their limit: (kernels, plain, kernels / limit)
     tightest = [(n, (*r, r[0] / limit(r))) for n, r in
                 sorted(rows.items(), key=lambda kv: -kv[1][0] / limit(kv[1]))[:5]]
-    expected = TRAIN_LAUNCHES[name]
     emit({tag: {
-        "net": name, "pair": [h, w], "maxdisparity": maxdisp, "batch": 1, "params": len(rows),
+        "net": name, "loss_name": loss_name, "pair": [h, w], "maxdisparity": maxdisp,
+        "batch": 1, "params": len(rows),
         "zero_in_exact_arithmetic": len(zero),
         "loss": {"kernels": loss_k, "plain_f32": loss_p, "f64": loss_64},
         "max_rel_err_kernels": max(r[0] for r in rows.values()),
@@ -1454,6 +1543,84 @@ def profile_train_step(dev, name: str) -> None:
         for _ in range(2):
             step(state, batch, lr, weights)["loss"].item()
         profile(f"{path}_profile", lambda: step(state, batch, lr, weights))
+
+
+def run_selfsup_training(dev, name: str) -> dict:
+    """The self-supervised train step of ``name`` (SELFSUP_RUNS: path, loss
+    name, batch, steps, Adam's lr), bf16, on one fixed batch of 384x768
+    synthetic pairs (256x640 views into the model), each step with its
+    own draws (``selfsup_generator(SELFSUP_SEED, step)``): every step's
+    launches must equal SELFSUP_LAUNCHES[name], and the eval step's loss on
+    the batch (no jitter, BN on running statistics, first calibrated on the
+    batch's views) must fall from before the steps to after them.  Beside
+    it are reported the eval's D1 and EPE and its appearance term, the
+    loss's 0.425 (1 - SSIM) + 0.15 L1 summed over the heads and both views
+    without occlusion weights.  Then one profiled step.  Returns the
+    launches of one step."""
+    from dsmnet_tpu_torch.losses import PhotoLossConfig, parse_loss_name
+    from dsmnet_tpu_torch.models.layers import calibrate_batch_stats, compute_dtype
+    from dsmnet_tpu_torch.ops import _build
+    from dsmnet_tpu_torch.train import (
+        create_train_state,
+        draw_selfsup_params,
+        make_selfsup_eval_step,
+        make_selfsup_train_step,
+        normalize_imagenet,
+        selfsup_generator,
+    )
+
+    path, loss_name, batch_n, steps, lr = SELFSUP_RUNS[name]
+    state, opt = create_train_state(seeded_model(dev, name), device=dev)
+    spec = parse_loss_name(loss_name, state.model.count_levels)
+    nedge = SELFSUP_NEDGE if spec.flag_mask else 0
+    batch = selfsup_batch(batch_n, dev)
+    views = normalize_imagenet(batch[:, nedge:H - nedge, nedge:W - nedge, :6])
+    calibrate_batch_stats(state.model, views[..., :3], views[..., 3:6])
+    weights = spec.weights(1)
+    step = make_selfsup_train_step(state.model, opt, spec.photo, nedge)
+    evaluate = make_selfsup_eval_step(state.model, spec.photo)
+    appearance = make_selfsup_eval_step(
+        state.model, PhotoLossConfig("cap", False, with_ds=False, with_lr=False))
+    metrics_of = lambda m: {k: v.item() for k, v in m.items() if k != "disp"}
+    evals = lambda: {**metrics_of(evaluate(state, batch, weights)),
+                     "appearance": appearance(state, batch, weights)["loss"].item()}
+    draws = lambda i: draw_selfsup_params(selfsup_generator(SELFSUP_SEED, i), batch_n)
+    expected = SELFSUP_LAUNCHES[name]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    losses, step_ms, counts = [], [], []
+    with compute_dtype(torch.bfloat16):
+        before = evals()
+        for i in range(steps):
+            d = draws(i)
+            _build.reset_launches()
+            t0 = time.perf_counter()
+            m = step(state, batch, lr, weights, d)
+            loss = m["loss"].item()  # synchronises: the step has completed
+            step_ms.append((time.perf_counter() - t0) * 1e3)
+            counts.append({k: v for k, v in _build.LAUNCHES.items() if v})
+            losses.append(loss)
+        metrics = {k: v.item() for k, v in m.items()}
+        peak = torch.cuda.max_memory_allocated() / 1e9
+        after = evals()
+        d = draws(steps)
+        profile(f"{path}_profile", lambda: step(state, batch, lr, weights, d))
+    med = statistics.median(step_ms[1:])  # the first step also warms the allocator
+    emit({f"{path}_bf16": {
+        "net": name, "loss_name": loss_name, "batch": batch_n, "pair": [H, W],
+        "views": [SH, SW] if nedge else [H, W], "maxdisparity": MAXDISP, "steps": steps,
+        "lr": lr, "loss": losses, "last_metrics": metrics, "eval_before": before,
+        "eval_after": after, "step_ms": step_ms, "median_step_ms": med,
+        "frames_per_s": batch_n * 1e3 / med, "peak_mem_gb": peak,
+        "launches_per_step": counts[-1], "expected_launches_per_step": expected}})
+    if any(c != expected for c in counts):
+        raise RuntimeError(f"{name} self-supervised launches {counts}, expected {expected} "
+                           "per step")
+    if not all(math.isfinite(v) for v in losses + [*before.values(), *after.values()]) \
+            or not after["loss"] < before["loss"]:
+        raise RuntimeError(f"{name}: the eval loss did not fall over {steps} self-supervised "
+                           f"steps: {before} -> {after} (train {losses})")
+    return counts[-1]
 
 
 def check_remat(dev, name: str = "gcnet", steps: int = 3) -> None:
@@ -1602,8 +1769,22 @@ def trainer_workers(counts: list[int]) -> None:
     shutil.rmtree(TRAINER_WORK, ignore_errors=True)
 
 
-def run_trainer(dev) -> dict:
-    """The trainer through ``dsmnet_tpu_torch.cli.main`` (``trainer_bf16``):
+def trainer_runs() -> dict:
+    """tag -> (command line, launches of a train step, launches of an eval
+    batch, Adam's lr, whether the mean train loss must fall from epoch 0
+    to 1): PSMNet supervised (``trainer_bf16``: an eval batch is one
+    forward) and DispNetC self-supervised (``trainer_selfsup_bf16``: two
+    forwards; its train loss, under a new augmentation each step, is
+    reported, and the eval loss is checked in ``train_selfsup_*``)."""
+    return {"trainer_bf16": (TRAINER_ARGS, TRAIN_LAUNCHES["psmnet"], REQUEST_LAUNCHES,
+                             TRAIN_LR, True),
+            "trainer_selfsup_bf16": (TRAINER_SELFSUP_ARGS, SELFSUP_LAUNCHES["dispnetcorr"],
+                                     {k: 2 * v for k, v in SERVE_LAUNCHES["dispnetcorr"].items()},
+                                     1e-4, False)}
+
+
+def run_trainer(dev, tag: str = "trainer_bf16") -> dict:
+    """The trainer through ``dsmnet_tpu_torch.cli.main`` (``trainer_runs()``):
     one epoch with a profiler trace, its launches counted; a resumed second
     epoch; ``--mode test`` and ``--mode submit`` from the best weights.
     Checkpoints and outputs go to a scratch directory beside this file,
@@ -1613,13 +1794,14 @@ def run_trainer(dev) -> dict:
     from dsmnet_tpu_torch.ops import _build
     from dsmnet_tpu_torch.train import lr_for_epoch
 
+    cmd, step_launches, eval_launches, lr, must_fall = trainer_runs()[tag]
     work = TRAINER_WORK
     shutil.rmtree(work, ignore_errors=True)
     out, trace_dir = work / "out", work / "trace"
-    args = TRAINER_ARGS + ["--output", str(out)]
-    expected = {k: TRAINER_STEPS * TRAIN_LAUNCHES["psmnet"].get(k, 0)
-                + TRAINER_VAL_BATCHES * REQUEST_LAUNCHES.get(k, 0)
-                for k in {**TRAIN_LAUNCHES["psmnet"], **REQUEST_LAUNCHES}}
+    args = cmd + ["--output", str(out)]
+    expected = {k: TRAINER_STEPS * step_launches.get(k, 0)
+                + TRAINER_VAL_BATCHES * eval_launches.get(k, 0)
+                for k in {**step_launches, **eval_launches}}
 
     t1, _, launches, first = train_via_cli(args, 1, "--profile_dir", str(trace_dir))
     files = {name: (Path(t1.dirpath) / name).is_file() for name in (
@@ -1633,7 +1815,7 @@ def run_trainer(dev) -> dict:
     _, (vloss, vepe, vd1) = cli.main(["--mode", "test", *args, "--path_weight", weights])
     test_launches = {k: v for k, v in _build.LAUNCHES.items() if v}
     test_expected = {k: v * TRAINER_TEST_SAMPLES // TRAIN_BATCH
-                     for k, v in REQUEST_LAUNCHES.items()}
+                     for k, v in eval_launches.items()}
 
     # --mode submit, batch 1, writing under the scratch directory
     cwd = os.getcwd()
@@ -1654,7 +1836,7 @@ def run_trainer(dev) -> dict:
     workers = [t.name for t in threading.enumerate() if t.name.startswith("BatchLoader")]
     shutil.rmtree(work, ignore_errors=True)
 
-    emit({"trainer_bf16": {
+    emit({tag: {
         "command": "cli.main(['--mode', 'train', " + ", ".join(repr(a) for a in args) + "])",
         "batch": TRAIN_BATCH, "crop": [H, W], "maxdisparity": MAXDISP,
         "epoch_0": first, "epoch_1": second, "expected_launches_per_epoch": expected,
@@ -1673,11 +1855,11 @@ def run_trainer(dev) -> dict:
     if first["steps"] != TRAINER_STEPS or (second["epoch"], second["steps"]) != (1, TRAINER_STEPS):
         raise RuntimeError(f"epochs ran {first['steps']} and {second['steps']} steps, the "
                            f"second ending at epoch {second['epoch']}")
-    if second["lr"] != lr_for_epoch(1, TRAIN_LR, 50, 20) or t2.state.step != 2 * TRAINER_STEPS:
+    if second["lr"] != lr_for_epoch(1, lr, 50, 20) or t2.state.step != 2 * TRAINER_STEPS:
         raise RuntimeError(f"resumed at lr {second['lr']}, step {t2.state.step}")
     losses = hist["loss"] + hist["loss_val"]
     if len(hist["loss"]) != 2 or not all(math.isfinite(v) for v in losses) \
-            or not hist["loss"][1] < hist["loss"][0]:
+            or (must_fall and not hist["loss"][1] < hist["loss"][0]):
         raise RuntimeError(f"the mean train loss did not fall from epoch 0 to 1: {hist}")
     if not all(math.isfinite(v) for v in (vloss, vepe, vd1)) or test_launches != test_expected:
         raise RuntimeError(f"test mode: loss {vloss}, epe {vepe}, d1 {vd1}, launches "
@@ -1779,6 +1961,11 @@ def main(argv: list[str] | None = None) -> int:
     for name in ("psmnet_basic", "dispnet", "dispnetcorr", "iresnet"):
         launches[TRAIN_RUNS[name][0]] = run_training(dev, name)
     launches["trainer"] = run_trainer(dev)
+    check_gradients(dev, "dispnetcorr", tag="selfsup_grad_f32",
+                    loss_name=SELFSUP_RUNS["dispnetcorr"][1])
+    for name, (path, *_) in SELFSUP_RUNS.items():
+        launches[path] = run_selfsup_training(dev, name)
+    launches["trainer_selfsup"] = run_trainer(dev, "trainer_selfsup_bf16")
     # the shapes' launches in kernel_specs must add up to what each path launched
     for s in specs:
         for path in launches:

@@ -5,8 +5,9 @@ Modes: train / finetune / test / submit / deploy, with the JAX flags
 except the mesh and multihost ones (ROADMAP.md queue 1, "Parallel"), and
 ``--device`` (default CUDA; without a card every mode raises).  Dataset
 and loss selection use the reference's string DSLs
-('kitti2015-tr_kitti2012-tr' concatenates datasets; 'supervised' is the
-ported loss); ``--dataset synthetic`` trains on the procedural dataset,
+('kitti2015-tr_kitti2012-tr' concatenates datasets; 'supervised', or a
+photometric loss such as 'Cap_ds-mask', which trains self-supervised);
+``--dataset synthetic`` trains on the procedural dataset,
 whose 384x768 samples need ``--shift_max 0`` at a 768-wide crop and a
 batch above 1 (a shifted sample is narrower than the crop, and a batch
 of mixed widths raises).  ``--path_weight`` takes the port's ``.pt``, an
@@ -15,6 +16,8 @@ of mixed widths raises).  ``--path_weight`` takes the port's ``.pt``, an
 Usage:
     python -m dsmnet_tpu_torch.cli --mode train --net psmnet --dataset synthetic \
         --batchsize 4 --shift_max 0 --dtype bfloat16 --lr 1e-3 --epochs 2
+    python -m dsmnet_tpu_torch.cli --mode train --net dispnetcorr --dataset synthetic \
+        --loss_name Cap_ds-mask --batchsize 4 --shift_max 0 --dtype bfloat16 --epochs 2
     python -m dsmnet_tpu_torch.cli --mode deploy --net gcnet \
         --maxdisparity 192 --path_left 10L.png --path_right 10R.png \
         [--path_weight w.pt] [--device cuda|cpu] [--dtype float32|bfloat16]
@@ -47,7 +50,7 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--print_freq", default=20, type=int)
     p.add_argument("--batchsize", default=1, type=int)
     p.add_argument("--loss_name", default="supervised", type=str,
-                   help="supervised (the photometric losses are not ported yet)")
+                   help="supervised/(depthmono/SsSMnet/Cap_ds_lr)[-mask]")
     p.add_argument("--net", default="dispnet", type=str,
                    help="psmnet/psmnet_basic/gcnet/dispnet/dispnetcorr/iresnet")
     p.add_argument("--maxdisparity", default=192, type=int)

@@ -1,11 +1,13 @@
 """Loss registry of the port (``dsmnet_tpu/losses/__init__.py``): the
-supervised branch of the loss-name DSL and the level-weight curriculum.
+loss-name DSL and the level-weight curriculum.
 
-The curriculum sweeps a linearly interpolated one-hot from the coarsest
-to the finest scale over ``maxepoch_weight_adjust`` epochs, with a 0.01
-floor elsewhere (reference loss.py:379-391).  The photometric losses are
-not ported yet (ROADMAP.md queue 1, "Self-supervised path"): their names
-raise.
+The reference selects losses with a compositional string DSL
+(losses/loss.py:341-377): a ``-mask`` suffix turns on occlusion
+weighting, the prefix picks the loss family, and for ``Cap`` losses the
+``ds`` / ``lr`` substrings toggle single terms.  The curriculum sweeps a
+linearly interpolated one-hot from the coarsest to the finest scale over
+``maxepoch_weight_adjust`` epochs, with a 0.01 floor elsewhere
+(loss.py:379-391).
 """
 
 from __future__ import annotations
@@ -14,22 +16,34 @@ import dataclasses
 
 import numpy as np
 
+from .photometric import PhotoLossConfig, photometric_pyramid_loss, weight_common
 from .supervised import supervised_level_loss, supervised_pyramid_loss
 
-__all__ = ["LossSpec", "parse_loss_name", "weight_adjust_levels", "supervised_pyramid_loss",
-           "supervised_level_loss"]
-
-_PHOTOMETRIC = ("depthmono", "sssmnet", "cap", "common")
+__all__ = [
+    "LossSpec",
+    "parse_loss_name",
+    "weight_adjust_levels",
+    "supervised_pyramid_loss",
+    "supervised_level_loss",
+    "photometric_pyramid_loss",
+    "PhotoLossConfig",
+    "weight_common",
+]
 
 
 @dataclasses.dataclass(frozen=True)
 class LossSpec:
-    """Parsed loss configuration (supervised only, so far)."""
+    """Parsed loss configuration."""
 
     name: str
     supervised: bool
+    photo: PhotoLossConfig | None
     count_levels: int
     maxepoch_weight_adjust: int
+
+    @property
+    def flag_mask(self) -> bool:
+        return self.photo.flag_mask if self.photo else False
 
     def weights(self, epoch: int) -> np.ndarray:
         return weight_adjust_levels(epoch, self.count_levels, self.maxepoch_weight_adjust)
@@ -38,15 +52,24 @@ class LossSpec:
 def parse_loss_name(loss_name: str, count_levels: int = 1,
                     maxepoch_weight_adjust: int = 1) -> LossSpec:
     """Parse the reference's loss-name DSL (loss.py:341-377)."""
+    flag_mask = "mask" in loss_name
     base = loss_name.split("-")[0].lower()
+    supervised = False
+    photo = None
     if "supervised" in base:
-        return LossSpec(loss_name, True, count_levels, maxepoch_weight_adjust)
-    if any(p in base for p in _PHOTOMETRIC):
-        raise NotImplementedError(
-            f"loss '{loss_name}' is photometric (self-supervised), which is not ported to "
-            "PyTorch yet: see ROADMAP.md, queue 1, 'Self-supervised path'")
-    raise ValueError(f"unknown loss '{loss_name}'; expected supervised / depthmono / "
-                     "SsSMnet / Cap_ds_lr / common with optional -mask suffix")
+        supervised = True
+    elif "depthmono" in base:
+        photo = PhotoLossConfig("depthmono", flag_mask)
+    elif "sssmnet" in base:
+        photo = PhotoLossConfig("sssmnet", flag_mask)
+    elif "cap" in base:
+        photo = PhotoLossConfig("cap", flag_mask, with_ds="ds" in base, with_lr="lr" in base)
+    elif "common" in base:
+        photo = PhotoLossConfig("common", flag_mask)
+    else:
+        raise ValueError(f"unknown loss '{loss_name}'; expected supervised / depthmono / "
+                         "SsSMnet / Cap_ds_lr / common with optional -mask suffix")
+    return LossSpec(loss_name, supervised, photo, count_levels, maxepoch_weight_adjust)
 
 
 def weight_adjust_levels(epoch: int, count_levels: int, maxepoch: int) -> np.ndarray:

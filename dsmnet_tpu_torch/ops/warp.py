@@ -29,11 +29,12 @@ __all__ = ["imwarp", "warp_disparity"]
 
 def imwarp(im_src: torch.Tensor, disp: torch.Tensor, fliplr: bool = False,
            left_top: tuple[float, float] = (0.0, 0.0), scale_factor: float = 1.0,
-           eps: float = 5.5e-5) -> torch.Tensor:
+           eps: float | torch.Tensor = 5.5e-5) -> torch.Tensor:
     """Warp ``im_src`` (N,H0,W0,C) by the left-view disparity ``disp``
     (N,H,W,1): the synthesized left view (N,H,W,C) in im_src's dtype.
     ``left_top`` is (x, y) in source pixels; ``scale_factor`` source pixels
-    per output pixel."""
+    per output pixel; ``eps`` a float or a 0-d tensor (the self-supervised
+    step draws it on the device)."""
     _, h0, w0, _ = im_src.shape
     _, h, w, cd = disp.shape
     if cd != 1:
@@ -42,7 +43,7 @@ def imwarp(im_src: torch.Tensor, disp: torch.Tensor, fliplr: bool = False,
     jj = torch.arange(w, dtype=torch.float32, device=disp.device).view(1, 1, w)
     d = disp[..., 0]
     px = (w0 - 1.0 - x0) - jj * scale_factor + d if fliplr else x0 + jj * scale_factor - d
-    src = im_src + torch.tensor(eps, dtype=im_src.dtype, device=im_src.device)
+    src = im_src + torch.as_tensor(eps, dtype=im_src.dtype, device=im_src.device)
 
     s_i = int(scale_factor) if float(scale_factor).is_integer() else None
     y0_i = int(y0) if float(y0).is_integer() else None
@@ -91,7 +92,7 @@ def _bilinear_gather_zero_pad(src: torch.Tensor, px: torch.Tensor,
 
 
 def warp_disparity(disp_other: torch.Tensor, disp: torch.Tensor,
-                   eps: float = 5.5e-5) -> torch.Tensor:
+                   eps: float | torch.Tensor = 5.5e-5) -> torch.Tensor:
     """Warp the flipped view's disparity map into this view (LR consistency):
     ``imwarp`` with fliplr, origin (0, 0) and scale 1."""
     return imwarp(disp_other, disp, fliplr=True, eps=eps)

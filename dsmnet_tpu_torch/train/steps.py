@@ -1,25 +1,37 @@
-"""Supervised train and eval steps (``dsmnet_tpu/train/steps.py:59-95``).
+"""Train and eval steps, supervised and self-supervised
+(``dsmnet_tpu/train/steps.py``).
 
-One step: split the 7-channel batch (left RGB, right RGB, left
+A supervised step: split the 7-channel batch (left RGB, right RGB, left
 disparity), forward in train mode (BN on batch statistics pooled over
 both views, running statistics updated), the supervised pyramid loss,
 backward through the hand-written kernels, Adam with the step's learning
-rate, and D1/EPE of the full-resolution ``disps[0]``.  The compute dtype
-is the caller's (``models.layers.compute_dtype``), as in the JAX bench.
+rate, and D1/EPE of the full-resolution ``disps[0]``.
 
-The metrics are returned as 0-d device tensors, so a step does not wait
-for the device; reading one synchronises.
+A self-supervised step (stereo_selfsupervised.py:44-95): the batch and
+its horizontal flip, a border of ``nedge`` cropped, the crop colour
+augmented on the device; two weight-shared train-mode forwards, of the
+pair and of the flipped, swapped pair, the second starting from the BN
+running statistics that the first left; the photometric pyramid loss on
+the raw [0, 1] views, whose warps sample the uncropped right sources;
+backward, Adam.  Its random draws (``color_aug.SelfsupDraws``) are an
+argument.
+
+The compute dtype is the caller's (``models.layers.compute_dtype``), as
+in the JAX bench.  The metrics are returned as 0-d device tensors, so a
+step does not wait for the device; reading one synchronises.
 """
 
 from __future__ import annotations
 
 import torch
 
-from ..losses import supervised_pyramid_loss
+from ..losses import PhotoLossConfig, photometric_pyramid_loss, supervised_pyramid_loss
+from .color_aug import SelfsupDraws, color_augment_batch
 from .metrics import d1_epe
 from .state import TrainState
 
-__all__ = ["make_supervised_train_step", "make_supervised_eval_step"]
+__all__ = ["make_supervised_train_step", "make_supervised_eval_step",
+           "make_selfsup_train_step", "make_selfsup_eval_step", "selfsup_loss"]
 
 
 def _split(batch: torch.Tensor):
@@ -36,16 +48,23 @@ def make_supervised_train_step(model: torch.nn.Module, opt: torch.optim.Optimize
         model.train()
         scales, disps = model(imL, imR)
         loss = supervised_pyramid_loss(dispL, disps, scales, weights, flag_smooth)
-        opt.zero_grad(set_to_none=True)
-        loss.backward()
-        for group in opt.param_groups:
-            group["lr"] = float(lr)
-        opt.step()
-        state.step += 1
+        _adam_step(state, opt, loss, lr)
         d1, epe = d1_epe(disps[0].detach(), dispL)
         return {"loss": loss.detach(), "d1": d1, "epe": epe}
 
     return step
+
+
+def _adam_step(state: TrainState, opt: torch.optim.Optimizer, loss: torch.Tensor,
+               lr: float) -> None:
+    """Backward, then Adam at the step's learning rate (applied outside the
+    moments, as JAX's -lr * u: train/steps.py:73-75)."""
+    opt.zero_grad(set_to_none=True)
+    loss.backward()
+    for group in opt.param_groups:
+        group["lr"] = float(lr)
+    opt.step()
+    state.step += 1
 
 
 def make_supervised_eval_step(model: torch.nn.Module, flag_smooth: bool = True):
@@ -61,5 +80,90 @@ def make_supervised_eval_step(model: torch.nn.Module, flag_smooth: bool = True):
         loss = supervised_pyramid_loss(dispL, disps, scales, weights, flag_smooth)
         d1, epe = d1_epe(disps[0], dispL)
         return {"loss": loss, "d1": d1, "epe": epe, "disp": disps[0]}
+
+    return step
+
+
+def _selfsup_views(batch: torch.Tensor, nedge: int, draws: SelfsupDraws | None) -> dict:
+    """Flip, crop and colour augmentation (stereo_selfsupervised.py:59-95):
+    the models' inputs (augmented, normalized) and the loss's views ([0, 1]).
+    The crop's border is symmetric, so the flip of the augmented crop is
+    the augmented crop of the flipped batch, with the views swapped."""
+    h, w = batch.shape[1], batch.shape[2]
+    he, we = h - nedge, w - nedge
+    batch1 = batch.flip(2)
+    batch_aug = color_augment_batch(draws, batch[:, nedge:he, nedge:we, :6])
+    batch1_aug = batch_aug.flip(2)
+    views = {
+        "imL_pre": batch_aug[..., :3],
+        "imR_pre": batch_aug[..., 3:6],
+        "imL1_pre": batch1_aug[..., 3:6],
+        "imR1_pre": batch1_aug[..., :3],
+        "imL": batch[:, nedge:he, nedge:we, :3],
+        "imR_src": batch[..., 3:6],
+        "imL1": batch1[:, nedge:he, nedge:we, 3:6],
+        "imR1_src": batch1[..., :3],
+    }
+    if batch.shape[-1] >= 7:
+        views["dispL"] = batch[:, nedge:he, nedge:we, 6:7]
+    return views
+
+
+def selfsup_loss(model: torch.nn.Module, cfg: PhotoLossConfig, batch: torch.Tensor,
+                 nedge: int, weights, draws: SelfsupDraws | None = None):
+    """The views, the two forwards (in the model's current mode) and the
+    photometric pyramid loss of a self-supervised step: (loss, the first
+    forward's full-resolution disparity, the views).  ``draws`` None is the
+    eval step's: no jitter, the warps' default eps."""
+    v = _selfsup_views(batch, nedge, draws)
+    scales, disps = model(v["imL_pre"], v["imR_pre"])
+    scales1, disps1 = model(v["imL1_pre"], v["imR1_pre"])  # from the first's BN statistics
+    eps = 5.5e-5 if draws is None else draws.eps
+    with torch.profiler.record_function("photometric_loss"):
+        loss = photometric_pyramid_loss(
+            cfg, v["imR_src"], v["imL"], disps, scales, (nedge, nedge),
+            v["imR1_src"], v["imL1"], disps1, scales1, (nedge, nedge), weights, eps=eps)
+    return loss, disps[0], v
+
+
+def _d1_epe_of_views(disp: torch.Tensor, v: dict):
+    """D1/EPE against the batch's 7th channel, or -1 for both without one."""
+    if "dispL" in v:
+        return d1_epe(disp, v["dispL"])
+    none = disp.new_full((), -1.0)
+    return none, none
+
+
+def make_selfsup_train_step(model: torch.nn.Module, opt: torch.optim.Optimizer,
+                            cfg: PhotoLossConfig, nedge: int):
+    """Returns ``step(state, batch, lr, weights, draws) -> {"loss", "d1",
+    "epe"}`` on a (N,H,W,6 or 7) [0, 1] batch; ``draws`` is the step's
+    ``SelfsupDraws`` (on any device) and ``state`` is updated in place.
+    ``nedge`` is 64 with occlusion masking: the border lets a warp sample
+    real content outside the crop (stereo_selfsupervised.py:60,85-95)."""
+
+    def step(state: TrainState, batch: torch.Tensor, lr: float, weights,
+             draws: SelfsupDraws) -> dict:
+        model.train()
+        loss, disp, v = selfsup_loss(model, cfg, batch, nedge, weights, draws.to(batch.device))
+        _adam_step(state, opt, loss, lr)
+        d1, epe = _d1_epe_of_views(disp.detach(), v)
+        return {"loss": loss.detach(), "d1": d1, "epe": epe}
+
+    return step
+
+
+def make_selfsup_eval_step(model: torch.nn.Module, cfg: PhotoLossConfig):
+    """Returns ``step(state, batch, weights) -> {"loss", "d1", "epe",
+    "disp"}`` (stereo_selfsupervised.py:148-241): no border, no jitter, the
+    warps' default eps, BN on its running statistics."""
+
+    @torch.no_grad()
+    def step(state: TrainState, batch: torch.Tensor, weights) -> dict:
+        del state
+        model.eval()
+        loss, disp, v = selfsup_loss(model, cfg, batch, 0, weights)
+        d1, epe = _d1_epe_of_views(disp, v)
+        return {"loss": loss, "d1": d1, "epe": epe, "disp": disp}
 
     return step

@@ -1,5 +1,5 @@
 """Training driver of the port (``dsmnet_tpu/train/trainer.py``; the
-reference's stereo.py + stereo_supervised.py).
+reference's stereo.py + stereo_supervised.py + stereo_selfsupervised.py).
 
 One ``Trainer`` owns the model, its optimizer, the loss spec, the
 checkpoint directory and the epoch loop: per-epoch LR decay, the
@@ -10,8 +10,11 @@ export.  It runs on ``cfg.device`` (``None`` = CUDA; without a card it
 raises).  The weights are drawn from a torch generator seeded with
 ``cfg.seed`` (JAX draws them from ``PRNGKey(seed)``), unless
 ``path_weight`` names a ``.pt``, ``.npz`` or JAX ``.msgpack`` file.
-Only the supervised loss is ported: a photometric ``loss_name`` raises
-``NotImplementedError`` (ROADMAP.md queue 1, "Self-supervised path").
+The loss name picks the supervised or the self-supervised steps; the
+latter crop a 64-pixel border with a ``-mask`` loss, and draw each step's
+augmentation from a generator seeded by (``seed`` + 1, the step), so a
+resumed run draws what an unbroken one would (JAX folds the step into
+``PRNGKey(seed + 1)``).
 """
 
 from __future__ import annotations
@@ -40,7 +43,13 @@ from .state import (
     lr_for_epoch,
     save_checkpoint,
 )
-from .steps import make_supervised_eval_step, make_supervised_train_step
+from .color_aug import draw_selfsup_params, selfsup_generator
+from .steps import (
+    make_selfsup_eval_step,
+    make_selfsup_train_step,
+    make_supervised_eval_step,
+    make_supervised_train_step,
+)
 
 log = logging.getLogger(__name__)
 
@@ -130,8 +139,13 @@ class Trainer:
                 self.epoch = last_epoch + 1
                 log.info("resumed checkpoint at epoch %d", self.epoch)
 
-        self._train_step = make_supervised_train_step(self.model, opt)
-        self._eval_step = make_supervised_eval_step(self.model)
+        nedge = 64 if self.spec.flag_mask else 0
+        if self.spec.supervised:
+            self._train_step = make_supervised_train_step(self.model, opt)
+            self._eval_step = make_supervised_eval_step(self.model)
+        else:
+            self._train_step = make_selfsup_train_step(self.model, opt, self.spec.photo, nedge)
+            self._eval_step = make_selfsup_eval_step(self.model, self.spec.photo)
         log.info("[%s] model: %s, loss: %s, resumed epochs: %d",
                  cfg.mode, cfg.net, cfg.loss_name, self.epoch)
 
@@ -139,6 +153,11 @@ class Trainer:
 
     def _weights(self, epoch):
         return self.spec.weights(epoch)
+
+    def _draws(self, n: int):
+        """The self-supervised step's draws for a batch of ``n``, from a
+        generator seeded by (seed + 1, step)."""
+        return draw_selfsup_params(selfsup_generator(self.cfg.seed + 1, self.state.step), n)
 
     def _place_batch(self, batch: np.ndarray) -> torch.Tensor:
         return torch.from_numpy(np.ascontiguousarray(batch)).to(self.device)
@@ -179,7 +198,10 @@ class Trainer:
                 batch = self._place_batch(batch)
                 meters["dt"].update(time.time() - t0)
                 with self._ctx():
-                    m = self._train_step(self.state, batch, lr, weights)
+                    if self.spec.supervised:
+                        m = self._train_step(self.state, batch, lr, weights)
+                    else:
+                        m = self._train_step(self.state, batch, lr, weights, self._draws(n))
                 m = {k: v.item() for k, v in m.items()}
                 meters["loss"].update(m["loss"], n)
                 if m["d1"] >= 0:

@@ -58,10 +58,11 @@ def test_port_imports_no_jax():
     res = _run(_IMPORT_ALL)
     assert res.returncode == 0, res.stderr
     count, names, bad, lazy = res.stdout.strip().split(" ", 3)
-    assert int(count) >= 41, res.stdout  # every module of the package was reached
+    assert int(count) >= 44, res.stdout  # every module of the package was reached
     for module in ("cli", "data.dataset", "data.transforms", "data.io", "data.paths",
                    "data.check", "train.trainer", "train.state", "utils.benchtime",
-                   "utils.evaluate", "utils.viz"):
+                   "utils.evaluate", "utils.viz", "ops.ssim", "ops.gradients",
+                   "losses.photometric", "train.color_aug", "train.steps"):
         assert f"dsmnet_tpu_torch.{module}" in names.split("|"), module
     assert bad == "[]", f"the port pulled in {bad}"
     assert lazy == "[]", f"importing the port pulled in {lazy}"
@@ -82,6 +83,9 @@ _ENTRY_POINTS = {
                  " '--dataset', 'synthetic'])",
     "trainer": "from dsmnet_tpu_torch.train import TrainConfig, Trainer\n"
                "Trainer(TrainConfig(net='dispnet', maxdisparity=16))",
+    "trainer_selfsup": "from dsmnet_tpu_torch.train import TrainConfig, Trainer\n"
+                       "Trainer(TrainConfig(net='dispnetcorr', maxdisparity=16,"
+                       " loss_name='Cap_ds-mask'))",
 }
 
 

@@ -2,13 +2,16 @@
 the JAX package's, on the CPU with the same numpy inputs (made from a
 seed) on both sides, in float64:
 
-  * the supervised pyramid loss, ``d1_epe``, the loss-name parser, the
-    level curriculum and the LR schedule;
+  * the supervised pyramid loss, ``d1_epe``, the loss-name parser (its
+    photometric names field by field), the level curriculum and the LR
+    schedule;
   * one Adam update of ``make_optimizer`` against optax ``scale_by_adam``
     followed by ``-lr * u``.
 
 The whole step is in ``test_torch_train.py``.
 """
+
+import dataclasses
 
 import jax
 import jax.numpy as jnp
@@ -81,8 +84,10 @@ def test_loss_names_curriculum_and_lr_schedule():
     np.testing.assert_array_equal(spec.weights(3), j_losses.parse_loss_name(
         "supervised", 4, 10).weights(3))
     for name in ("depthmono-mask", "SsSMnet", "Cap_ds_lr", "common"):
-        with pytest.raises(NotImplementedError, match="Self-supervised path"):
-            t_losses.parse_loss_name(name)
+        t, j = t_losses.parse_loss_name(name, 4, 10), j_losses.parse_loss_name(name, 4, 10)
+        assert (t.name, t.supervised, t.flag_mask) == (j.name, j.supervised, j.flag_mask)
+        assert dataclasses.asdict(t.photo) == dataclasses.asdict(j.photo), name
+        np.testing.assert_array_equal(t.weights(3), j.weights(3))
     with pytest.raises(ValueError, match="unknown loss"):
         t_losses.parse_loss_name("nonsense")
     for epoch in range(0, 30, 3):
