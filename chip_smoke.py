@@ -4,12 +4,19 @@
     python3 chip_smoke.py
     python3 chip_smoke.py --only corr1d,corr1d_vjp --profile-train dispnetcorr,iresnet
     python3 chip_smoke.py --trainer-workers 1,4,16
+    python3 chip_smoke.py --data-parallel
+    python3 chip_smoke.py --dp-cards 4
 
 The second form runs only the named kernels' checks and timings (step 2)
 and one profiled bf16 train step of each named model, and prints no ``ok``
 line; copied beside another commit's package it measures that commit.
 The third runs one epoch of step 10's trainer for each loader worker
-count (``trainer_workers``), and prints no ``ok`` line either.
+count (``trainer_workers``), and prints no ``ok`` line either.  The
+fourth runs step 10's ``trainer_bf16`` and then step 12's data-parallel
+phases, with their launch checks but without the kernel rows, and prints
+no ``ok`` line; the fifth runs step 12's ``dp2_shared_card`` across that
+many cards instead, rank i on card i over NCCL (``dp4_nccl``), no ``ok``
+line either.
 
 1. Builds the hand-written CUDA kernels from ``dsmnet_tpu_torch/csrc`` and
    prints the card, the versions and the build time.
@@ -102,11 +109,33 @@ count (``trainer_workers``), and prints no ``ok`` line either.
    profiled step gives the device ms under the loss's ``photometric_loss``
    span; then 10.'s trainer for DispNetC with ``--loss_name Cap_ds-mask``
    (``trainer_selfsup_bf16``: an eval batch is two forwards).
-12. The script's command time, one ``{"kernels": [...]}`` line (launches
+12. Data parallel (``parallel/``): ``dp_cli_nccl_bf16`` drives 10.'s
+   command line with ``--mesh-data 1`` under torchrun's environment (RANK
+   0 of WORLD_SIZE 1): a real NCCL group through ``env://``, the
+   ``Trainer`` on a 1x1 mesh, every reduction over the batch and the
+   gradient bucket all-reduced; its launches per epoch must equal
+   ``trainer_bf16``'s, and its median ``bt`` and ``dt`` are printed beside
+   them.  Then ``dp2_shared_card``: two spawned ranks pinned to the one
+   card on a gloo group (NCCL refuses two ranks on one card; gloo moves
+   CUDA tensors through the host), (a) full-width PSMNet, one sample per
+   rank, float32 with TF32 off: the global loss and every summed gradient
+   against the one-process float32 step on the same 2-pair batch and
+   weights, each within DP2_GRAD_FACTOR x the one-process path's own
+   error against float64 (+ a floor, as in 4.); (b) bf16 steps at 4 per
+   rank (global 8): every step's launches equal TRAIN_LAUNCHES (path
+   ``dp2_train``), the loss falls, the per-rank step time and the device
+   time under the gradient all-reduce (a gloo all-reduce on one shared
+   card, not a multi-GPU node's); (c) ``halo_conv2d`` at (2, 96, 192, 32)
+   -> 32 in float32, H split over the two ranks, forward and backward
+   against ``conv2d_same`` on the whole tensor, through A and E (path
+   ``dp2_halo``).  Beside it, whether gloo's send/recv take a CUDA tensor
+   (``gloo_p2p_cuda``, two more processes).
+13. The script's command time, one ``{"kernels": [...]}`` line (launches
    and times on each kernel's first path, "primary": the train step for
    A-G and J, GCNet's request for H, DispNetC's for I, iResNet's step for
    I's VJP; and per path), the card's
-   name and power limit, and last the ``{"ok": true, ...}`` line.
+   name and power limit, and last the ``{"ok": true, ...}`` line.  Every
+   printed row of 12. carries the card's name and power limit.
 
 Any failed check raises: the script exits non-zero and prints no result.
 It exits non-zero at once when CUDA is not available.
@@ -267,6 +296,17 @@ TRAINER_SELFSUP_ARGS = ["--net", "dispnetcorr", "--loss_name", "Cap_ds-mask", "-
                         "--crop_w", str(W), "--maxdisparity", str(MAXDISP), "--shift_max", "0",
                         "--dtype", "bfloat16", "--lr", "1e-4"]
 
+# data parallel on the shared card (dp2_shared_card): bf16 steps at
+# TRAIN_BATCH per rank; the summed f32 gradients may differ from the one
+# process's by DP2_GRAD_FACTOR x that path's own error against float64
+# (+ the floor of check_gradients): the two sum the same terms in another
+# order, and a lost or doubled term misses by O(1)
+DP2_RANKS, DP2_STEPS, DP2_GRAD_FACTOR = 2, 6, GRAD_F32_FACTOR
+DP2_HALO_SHAPE = (2, 96, 192, 32)
+DP2_DEVICE = "cuda:0"  # both ranks' card
+# a collective waits this long for a rank before it fails
+DP_TIMEOUT_S = 300
+
 SLOW_CALL_MS = 20.0
 
 T_START = time.perf_counter()
@@ -341,7 +381,9 @@ def kernel_specs():
     "train_gcnet", "train_psmnet_basic", "train_dispnetc", "train_iresnet"
     (per step, at TRAIN_RUNS' batch), "train_selfsup_dispnetc",
     "train_selfsup_psmnet" (per self-supervised step), "trainer" and
-    "trainer_selfsup" (per epoch of the trainer phases).  Every shape a path launches has a
+    "trainer_selfsup" (per epoch of the trainer phases), "dp2_train" (per
+    data-parallel step of one rank) and "dp2_halo" (one rank's halo_conv2d,
+    forward and backward).  Every shape a path launches has a
     row, and main() holds the rows' launches to the path's counters.
     "primary" names the path whose launches and times head the kernel's
     entry in the ``{"kernels": ...}`` line.  A conv kernel (kind "conv")
@@ -495,6 +537,8 @@ def kernel_specs():
                     ((Bs, H4, W4, 128), (Bs, H4, W4, 128), 2 * TRAINER_VAL_BATCHES, 41, 1)]
 
     maps = lambda n, h, w, o=32: (n, h, w, 9 * o)  # a stem tap map: 9 taps of O channels
+    # a rank's band of DP2_HALO_SHAPE's rows, padded by a halo row each side
+    halo_band = (DP2_HALO_SHAPE[0], DP2_HALO_SHAPE[1] // DP2_RANKS + 2, *DP2_HALO_SHAPE[2:])
 
     # "edges": small shapes whose H, W (and D) are not multiples of any
     # tile size, so every ragged-edge path of a kernel is held to its plain
@@ -511,7 +555,10 @@ def kernel_specs():
                     # PSMNet-basic runs its tower once per view
                     "serve_psmnet_basic": [((1, H2, W2, 32), (3, 3, 32, 32), 16)],
                     "train_gcnet": [((2 * Bg, H2, W2, 32), (3, 3, 32, 32), 34)],
-                    "train_psmnet_basic": [((Bb, H2, W2, 32), (3, 3, 32, 32), 32)]},
+                    "train_psmnet_basic": [((Bb, H2, W2, 32), (3, 3, 32, 32), 32)],
+                    # halo_conv2d's band with a halo row above and below it,
+                    # forward and dx
+                    "dp2_halo": [(halo_band, (3, 3, 32, 32), 2)]},
              # A's bf16 walk (128-position row segments, ranges of rows): H =
              # 1, 2, 3; W = 40 and 60 (less than a segment), 130 and 300 (a
              # ragged last segment); ranges of 2 rows crossing images (4 x
@@ -608,7 +655,8 @@ def kernel_specs():
              flops=dk_flops(9),
              paths={"train": [((2 * B, H2, W2, 32), (2 * B, H2, W2, 32), 8)],
                     "train_gcnet": [((2 * Bg, H2, W2, 32), (2 * Bg, H2, W2, 32), 17)],
-                    "train_psmnet_basic": [((Bb, H2, W2, 32), (Bb, H2, W2, 32), 16)]},
+                    "train_psmnet_basic": [((Bb, H2, W2, 32), (Bb, H2, W2, 32), 16)],
+                    "dp2_halo": [(halo_band, halo_band, 1)]},
              # E's bf16 walk: W = 40 (one ragged 96-position segment), W =
              # 100 and 200 (a ragged last segment) at batch 1 and 2, odd H,
              # chunks of one row and of two that start inside an oh walk
@@ -745,6 +793,10 @@ def kernel_specs():
             paths["train_selfsup_psmnet"] = [
                 (selfsup_shape(a), b if spec["kind"] == "conv" else selfsup_shape(b), 2 * n, *args)
                 for a, b, n, *args in paths["train"]]
+        # the data-parallel bf16 steps on the shared card: each rank steps on
+        # TRAIN_BATCH samples, the train step's shapes
+        if "train" in paths:
+            paths["dp2_train"] = paths["train"]
         # the trainer's epoch: TRAINER_STEPS train steps and TRAINER_VAL_BATCHES
         # eval forwards at the train batch (a request's shapes at batch B; both
         # operands of the stem's assembly are per sample)
@@ -755,6 +807,8 @@ def kernel_specs():
                 [(a, b, n * TRAINER_STEPS, *args) for a, b, n, *args in paths["train"]]
                 + [(batched(a), batched(b) if per_sample else b, n * TRAINER_VAL_BATCHES, *args)
                    for a, b, n, *args in paths.get("serve", [])])
+            # the same epoch through the data-parallel CLI on a 1x1 mesh
+            paths["dp_cli"] = paths["trainer"]
     return specs
 
 
@@ -1788,7 +1842,7 @@ def run_trainer(dev, tag: str = "trainer_bf16") -> dict:
     one epoch with a profiler trace, its launches counted; a resumed second
     epoch; ``--mode test`` and ``--mode submit`` from the best weights.
     Checkpoints and outputs go to a scratch directory beside this file,
-    removed at the end.  Returns the first epoch's launches."""
+    removed at the end.  Returns the first epoch's launches and figures."""
     from dsmnet_tpu_torch import cli
     from dsmnet_tpu_torch.images import read_png16
     from dsmnet_tpu_torch.ops import _build
@@ -1871,7 +1925,368 @@ def run_trainer(dev, tag: str = "trainer_bf16") -> dict:
         raise RuntimeError(f"submit wrote {len(res['filename'])} PNGs, max diff {png_diff}")
     if workers:
         raise RuntimeError(f"loader threads still running: {workers}")
+    return launches, first
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        return sock.getsockname()[1]
+
+
+def run_dp_cli(trainer_row: dict, card: str) -> dict:
+    """``dp_cli_nccl_bf16``: 10.'s command line with ``--mesh-data 1`` under
+    torchrun's environment (RANK 0 of WORLD_SIZE 1, ``env://``): a real
+    NCCL group, the Trainer on a 1x1 mesh, every reduction over the batch
+    and the gradient bucket all-reduced.  Its launches per epoch must equal
+    ``trainer_bf16``'s (``trainer_row``), one gradient all-reduce per step;
+    it must write its files.  Returns the epoch's launches."""
+    from dsmnet_tpu_torch.parallel import context
+
+    env = {"RANK": "0", "WORLD_SIZE": "1", "LOCAL_RANK": "0", "MASTER_ADDR": "localhost",
+           "MASTER_PORT": str(free_port())}
+    if "NCCL_SOCKET_IFNAME" not in os.environ:
+        env["NCCL_SOCKET_IFNAME"] = "lo"  # one host: the loopback interface
+    saved = {k: os.environ.get(k) for k in env}
+    shutil.rmtree(TRAINER_WORK, ignore_errors=True)
+    context.COLLECTIVES.clear()
+    os.environ.update(env)
+    try:
+        args = TRAINER_ARGS + ["--output", str(TRAINER_WORK / "out"), "--mesh-data", "1"]
+        trainer, hist, launches, row = train_via_cli(args, 1)
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    files = {name: (Path(trainer.dirpath) / name).is_file() for name in (
+        "model_checkpoint.pt", "model_best.pt", "weight_best.pt", "loss_history.json")}
+    shutil.rmtree(TRAINER_WORK, ignore_errors=True)
+    collectives = dict(context.COLLECTIVES)
+    expected = {k: TRAINER_STEPS * TRAIN_LAUNCHES["psmnet"].get(k, 0)
+                + TRAINER_VAL_BATCHES * REQUEST_LAUNCHES.get(k, 0)
+                for k in {**TRAIN_LAUNCHES["psmnet"], **REQUEST_LAUNCHES}}
+    mesh = trainer.mesh
+    emit({"dp_cli_nccl_bf16": {
+        "card": card, "command": "cli.main(['--mode', 'train', " + ", ".join(
+            repr(a) for a in args) + "]) with RANK=0 WORLD_SIZE=1 LOCAL_RANK=0",
+        "mesh": None if mesh is None else [list(mesh.shape), mesh.device_type],
+        "device": str(trainer.device), "epoch_0": row,
+        "median_bt_ms": row["median_bt_ms"], "median_dt_ms": row["median_dt_ms"],
+        "trainer_bf16_median_bt_ms": trainer_row["median_bt_ms"],
+        "trainer_bf16_median_dt_ms": trainer_row["median_dt_ms"],
+        "bt_minus_trainer_bf16_ms": row["median_bt_ms"] - trainer_row["median_bt_ms"],
+        "all_reduces_by_site": collectives, "expected_launches_per_epoch": expected,
+        "train_loss": hist["loss"], "val_loss": hist["loss_val"], "files": files}})
+    if mesh is None or list(mesh.shape) != [1, 1] or mesh.device_type != "cuda":
+        raise RuntimeError(f"dp_cli: no NCCL 1x1 mesh ({mesh})")
+    if launches != expected or launches != trainer_row["launches"]:
+        raise RuntimeError(f"dp_cli launches {launches}, expected {expected} "
+                           f"(trainer_bf16: {trainer_row['launches']})")
+    if collectives.get("grad_bucket") != TRAINER_STEPS or not collectives.get("bn_moments") \
+            or not collectives.get("data_sum"):
+        raise RuntimeError(f"dp_cli all-reduces {collectives}")
+    if not all(files.values()) or not all(math.isfinite(v) for v in hist["loss"]
+                                          + hist["loss_val"]):
+        raise RuntimeError(f"dp_cli files {files}, history {hist}")
     return launches
+
+
+def _gloo_p2p_probe(rank: int, port: int, queue) -> None:
+    """Whether gloo's send/recv move a CUDA tensor: rank 0 sends one to rank 1."""
+    import datetime
+
+    from dsmnet_tpu_torch.parallel import init_distributed
+
+    init_distributed(f"localhost:{port}", 2, rank, backend="gloo",
+                     timeout=datetime.timedelta(seconds=60))
+    t = torch.full((1024,), float(rank + 1), device="cuda")
+    try:
+        if rank == 0:
+            torch.distributed.send(t, 1)
+            queue.put((rank, "sent"))
+        else:
+            torch.distributed.recv(t, 0)
+            torch.cuda.synchronize()
+            queue.put((rank, f"received {t[0].item()} (expected 1.0)"))
+    except Exception as exc:  # noqa: BLE001 -- the probe reports what gloo raised
+        queue.put((rank, f"{type(exc).__name__}: {str(exc)[:200]}"))
+
+
+def _spawn(target, ranks: int, args_of, timeout: float) -> tuple[list, list]:
+    """``target(rank, *args_of(rank), queue)`` in ``ranks`` spawned
+    processes: (what they put on the queue, their exit codes); a process
+    still running at ``timeout`` is killed."""
+    import multiprocessing as mp
+    import queue as queue_module
+
+    ctx = mp.get_context("spawn")
+    q = ctx.Queue()
+    procs = [ctx.Process(target=target, args=(rank, *args_of(rank), q), daemon=True)
+             for rank in range(ranks)]
+    for p in procs:
+        p.start()
+    deadline, got = time.monotonic() + timeout, []
+    while len(got) < ranks and time.monotonic() < deadline:
+        try:
+            got.append(q.get(timeout=1.0))
+        except queue_module.Empty:
+            if any(p.exitcode not in (None, 0) for p in procs):
+                break
+    for p in procs:
+        p.join(timeout=max(1.0, deadline - time.monotonic()))
+        if p.is_alive():
+            p.kill()
+            p.join()
+    return got, [p.exitcode for p in procs]
+
+
+def _dp2_rank(rank: int, ranks: int, port: int, backend: str, queue) -> None:
+    """One of ``ranks`` ranks of the data-parallel phase: on DP2_DEVICE over
+    gloo (``dp2_shared_card``), or on card ``rank`` over NCCL (``--dp-cards``):
+    (a) a float32 step on its pair of the global batch, (b) DP2_STEPS bf16
+    steps on its TRAIN_BATCH pairs and one profiled step, (c) its band of
+    ``halo_conv2d``, forward and backward; everything to the parent."""
+    import datetime
+    import traceback
+
+    from torch.profiler import ProfilerActivity, profile as torch_profile
+
+    try:
+        from dsmnet_tpu_torch.models.layers import compute_dtype
+        from dsmnet_tpu_torch.ops import _build
+        from dsmnet_tpu_torch.parallel import (
+            ShardingContext, activate, halo_conv2d, init_distributed, make_mesh, replicate,
+            shard_batch)
+        from dsmnet_tpu_torch.train import create_train_state, make_supervised_train_step
+
+        os.environ["LOCAL_RANK"] = str(rank if backend == "nccl" else 0)
+        dev = torch.device("cuda", rank) if backend == "nccl" else torch.device(DP2_DEVICE)
+        if dev.type == "cuda":
+            torch.cuda.set_device(dev)
+        torch.backends.cudnn.allow_tf32 = False
+        torch.backends.cuda.matmul.allow_tf32 = False
+        init_distributed(f"localhost:{port}", ranks, rank, backend=backend,
+                         timeout=datetime.timedelta(seconds=DP_TIMEOUT_S))
+        _build.lib()  # the parent built it
+        data_mesh = make_mesh(data=ranks)
+        ctx = ShardingContext(data_mesh)
+        out = {"rank": rank}
+
+        # (a) float32, one sample per rank: the applied (summed) gradients
+        state, opt = create_train_state(seeded_model(dev), device=dev)
+        replicate(state, data_mesh)
+        step = make_supervised_train_step(state.model, opt)
+        weights = loss_weights(state.model)
+        with activate(ctx):
+            m = step(state, shard_batch(train_batch(ranks, dev), data_mesh), 0.0, weights)
+        # numpy: a queue passes a torch tensor as a file descriptor that dies
+        # with this process
+        out["a"] = {"loss": m["loss"].item(), "grads": {
+            n: p.grad.detach().float().cpu().numpy() for n, p in
+            state.model.named_parameters()}}
+        del state, opt, step
+        torch.cuda.empty_cache()
+
+        # (b) bf16 steps, TRAIN_BATCH a rank
+        state, opt = create_train_state(seeded_model(dev), device=dev)
+        replicate(state, data_mesh)
+        step = make_supervised_train_step(state.model, opt)
+        batch = shard_batch(train_batch(ranks * TRAIN_BATCH, dev), data_mesh)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        losses, step_ms, counts = [], [], []
+        with activate(ctx), compute_dtype(torch.bfloat16):
+            for _ in range(DP2_STEPS):
+                _build.reset_launches()
+                t0 = time.perf_counter()
+                loss = step(state, batch, TRAIN_LR, weights)["loss"].item()
+                step_ms.append((time.perf_counter() - t0) * 1e3)
+                counts.append({k: v for k, v in _build.LAUNCHES.items() if v})
+                losses.append(loss)
+            peak = torch.cuda.max_memory_allocated() / 1e9
+            with torch_profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                t0 = time.perf_counter()
+                step(state, batch, TRAIN_LR, weights)["loss"].item()
+                wall = (time.perf_counter() - t0) * 1e3
+        device_ms = sum(e.self_device_time_total for e in prof.key_averages()
+                        if e.device_type == torch.autograd.DeviceType.CUDA
+                        and not getattr(e, "is_user_annotation", False)) / 1e3
+        allreduce = under(prof, "grad_allreduce")
+        out["b"] = {"losses": losses, "step_ms": step_ms, "counts": counts, "peak_mem_gb": peak,
+                    "profiled_wall_ms": wall, "profiled_device_ms": device_ms,
+                    "grad_allreduce": {k: allreduce[k] for k in ("nodes", "device_ms",
+                                                                 "launches")},
+                    "grad_elements": sum(p.numel() for p in state.model.parameters())}
+        del state, opt, step, batch, prof
+        torch.cuda.empty_cache()
+
+        # (c) halo_conv2d, float32, H split over the ranks
+        model_mesh = make_mesh(data=1, model=ranks)
+        x, k, g = halo_inputs(dev)
+        rows = x.shape[1] // ranks
+        band = x[:, rank * rows:(rank + 1) * rows].clone().requires_grad_(True)
+        kk = k.clone().requires_grad_(True)
+        _build.reset_launches()
+        y = halo_conv2d(band, kk, model_mesh)
+        (y * g[:, rank * rows:(rank + 1) * rows]).sum().backward()
+        torch.cuda.synchronize()
+        out["c"] = {"y": y.detach().cpu().numpy(), "dx": band.grad.cpu().numpy(),
+                    "dk": kk.grad.cpu().numpy(),
+                    "launches": {k_: v for k_, v in _build.LAUNCHES.items() if v}}
+        queue.put(out)
+    except BaseException:
+        queue.put({"rank": rank, "error": traceback.format_exc()})
+        raise
+    finally:
+        if torch.distributed.is_initialized():
+            torch.distributed.destroy_process_group()
+
+
+def halo_inputs(dev):
+    """DP2_HALO_SHAPE's input, a 3x3 32 -> 32 kernel and a cotangent, float32."""
+    g = torch.Generator().manual_seed(2)
+    n, h, w, c = DP2_HALO_SHAPE
+    x = torch.randn((n, h, w, c), generator=g)
+    k = torch.randn((3, 3, c, c), generator=g) * (2.0 / (9 * c)) ** 0.5
+    cot = torch.randn((n, h, w, c), generator=g)
+    return x.to(dev), k.to(dev), cot.to(dev)
+
+
+def run_data_parallel(dev, card: str, ranks: int = DP2_RANKS, backend: str = "gloo") -> dict:
+    """``dp2_shared_card`` (see the module's step 12; gloo, every rank on
+    DP2_DEVICE), or with ``backend="nccl"`` ``dp<ranks>_nccl``, rank i on card
+    i: the one-process references first (on ``dev``), then the ranks, then
+    the checks.  Returns the launches of a rank's bf16 step (``dp2_train``)
+    and of its halo convolution (``dp2_halo``)."""
+    from dsmnet_tpu_torch import config
+    from dsmnet_tpu_torch.losses import supervised_pyramid_loss
+    from dsmnet_tpu_torch.ops import _build
+    from dsmnet_tpu_torch.ops.conv2d import conv2d_same
+
+    probe = None
+    if backend == "gloo":  # gloo's send/recv of a CUDA tensor, in two processes of their own
+        port = free_port()
+        probe = dict(zip(("results", "exit_codes"),
+                         _spawn(_gloo_p2p_probe, 2, lambda r: (port,), 120)))
+
+    # (a)'s references: the one-process float32 step's loss and gradients on
+    # every rank's pair through the kernels, the same on the float64 plain path
+    model = seeded_model(dev).train()
+    batch, weights = train_batch(ranks, dev), loss_weights(model)
+
+    def grads(m, b):
+        m.zero_grad(set_to_none=True)
+        scales, disps = m(b[..., :3], b[..., 3:6])
+        loss = supervised_pyramid_loss(b[..., 6:7], disps, scales, weights)
+        loss.backward()
+        return loss.item(), {n: p.grad.double().cpu() for n, p in m.named_parameters()}
+
+    loss_1, g_1 = grads(model, batch)
+    with config.implementation("plain"):
+        model64 = copy.deepcopy(model).double()
+        loss_64, g_64 = grads(model64, batch.double())
+    zero = zero_gradient_params(model)
+    del model, model64, batch
+    # (c)'s reference: conv2d_same on the whole tensor, forward and backward
+    x, k, cot = halo_inputs(dev)
+    x.requires_grad_(True)
+    k.requires_grad_(True)
+    y_full = conv2d_same(x, k)
+    (y_full * cot).sum().backward()
+    y_full, dx_full, dk_full = y_full.detach().cpu(), x.grad.cpu(), k.grad.cpu()
+    del x, k, cot
+    torch.cuda.empty_cache()
+
+    port = free_port()
+    got, codes = _spawn(_dp2_rank, ranks, lambda r: (ranks, port, backend), DP_TIMEOUT_S + 300)
+    errors = [o["error"] for o in got if "error" in o]
+    if errors or len(got) != ranks or any(codes):
+        raise RuntimeError(f"dp2 ranks: exit codes {codes}, {len(got)} results, "
+                           f"errors {errors}")
+    r = sorted(got, key=lambda o: o["rank"])
+    for o in r:
+        o["a"]["grads"] = {n: torch.from_numpy(g) for n, g in o["a"]["grads"].items()}
+        o["c"].update({k: torch.from_numpy(o["c"][k]) for k in ("y", "dx", "dk")})
+
+    # (a): each rank's global loss and summed gradients against the one process's
+    scale = {n: (g_64[n.replace(".bias", ".kernel")] if n in zero else g_64[n]).norm()
+             for n in g_64}
+    rel = lambda a, b, n: ((a.double() - b).norm() / scale[n].clamp(min=1e-300)).item()
+    plain = {n: rel(g_1[n], g_64[n], n) for n in g_64}
+    floor = GRAD_F32_FLOOR_SHARE * statistics.median(plain.values())
+    rows = {n: (rel(r[0]["a"]["grads"][n], g_1[n], n), plain[n]) for n in g_64}
+    bad = {n: v for n, v in rows.items() if not v[0] <= DP2_GRAD_FACTOR * v[1] + floor}
+    ranks_equal = all(torch.equal(r[0]["a"]["grads"][n], o["a"]["grads"][n])
+                      for o in r[1:] for n in g_64)
+    loss_err, loss_tol = abs(r[0]["a"]["loss"] - loss_1), DP2_GRAD_FACTOR * abs(
+        loss_1 - loss_64) + 1e-6 * abs(loss_64)
+    # (b)
+    bs = [o["b"] for o in r]
+    expected = TRAIN_LAUNCHES["psmnet"]
+    # (c)
+    y = torch.cat([o["c"]["y"] for o in r], dim=1)
+    dx = torch.cat([o["c"]["dx"] for o in r], dim=1)
+    dk = sum(o["c"]["dk"] for o in r)
+    y_err = ((y - y_full).abs() - F32_RTOL * y_full.abs()).max().item()
+    dx_err = ((dx - dx_full).abs() - F32_RTOL * dx_full.abs()).max().item()
+    dk_err = ((dk - dk_full).abs().max() / dk_full.abs().max()).item()
+    halo_expected = {"conv2d_k3": 2, "conv2d_dk_k3": 1}
+    shared = backend == "gloo"
+    emit({"dp2_shared_card" if shared else f"dp{ranks}_nccl": {
+        "card": card, "ranks": ranks, "backend": backend,
+        "device": f"{DP2_DEVICE}, every rank" if shared else "cuda:<rank>",
+        "note": "ranks on one card over gloo, which moves CUDA tensors through the host: these "
+                "times measure gloo on one shared card, not a multi-GPU node" if shared else
+                "one rank per card over NCCL",
+        "gloo_p2p_cuda": probe,
+        "a_f32_one_sample_per_rank": {
+            "loss": {"ranks": [o["a"]["loss"] for o in r], "one_process_f32": loss_1,
+                     "f64": loss_64, "abs_err": loss_err, "tolerance": loss_tol},
+            "params": len(rows), "ranks_same_bits": ranks_equal,
+            "max_rel_err_vs_one_process": max(v[0] for v in rows.values()),
+            "median_rel_err_vs_one_process": statistics.median(v[0] for v in rows.values()),
+            "median_rel_err_one_process_vs_f64": statistics.median(plain.values()),
+            "tightest": sorted(((n, v[0] / (DP2_GRAD_FACTOR * v[1] + floor)) for n, v in
+                                rows.items()), key=lambda kv: -kv[1])[:5],
+            "outside_tol": bad,
+            "tolerance": f"per parameter |g_dp - g_1| / |g64| <= {DP2_GRAD_FACTOR} x "
+                         f"|g_1 - g64| / |g64| + {GRAD_F32_FLOOR_SHARE} x median = {floor:.3g}"},
+        "b_bf16_steps": {
+            "batch_per_rank": TRAIN_BATCH, "global_batch": ranks * TRAIN_BATCH,
+            "steps": DP2_STEPS, "losses": bs[0]["losses"],
+            "step_ms_per_rank": [b["step_ms"] for b in bs],
+            "median_step_ms_per_rank": [statistics.median(b["step_ms"][1:]) for b in bs],
+            "peak_mem_gb_per_rank": [b["peak_mem_gb"] for b in bs],
+            "profiled_step": {k: [b[k] for b in bs] for k in (
+                "profiled_wall_ms", "profiled_device_ms", "grad_allreduce")},
+            "grad_elements": bs[0]["grad_elements"],
+            "launches_per_step": bs[0]["counts"][-1], "expected_launches_per_step": expected},
+        "c_halo_conv2d_f32": {
+            "shape": list(DP2_HALO_SHAPE), "max_abs_err_out": (y - y_full).abs().max().item(),
+            "max_abs_err_dx": (dx - dx_full).abs().max().item(), "dk_rel_err": dk_err,
+            "same_bits_out": torch.equal(y, y_full),
+            "tolerance": f"out, dx: |err| <= {F32_ATOL} + {F32_RTOL} |ref|; dk: 1e-5 of max|dk|",
+            "launches": [o["c"]["launches"] for o in r], "expected_launches": halo_expected}}})
+    if bad or loss_err > loss_tol or not ranks_equal:
+        raise RuntimeError(f"dp2 (a): loss err {loss_err} (tol {loss_tol}), ranks equal "
+                           f"{ranks_equal}, gradients outside tolerance {bad}")
+    if any(c != expected for b in bs for c in b["counts"]):
+        raise RuntimeError(f"dp2 (b) launches {[b['counts'] for b in bs]}, "
+                           f"expected {expected}")
+    losses = bs[0]["losses"]
+    if any(b["losses"] != losses for b in bs) or not all(math.isfinite(v) for v in losses) \
+            or not losses[-1] < losses[0]:
+        raise RuntimeError(f"dp2 (b): the global loss did not fall alike on every rank: "
+                           f"{[b['losses'] for b in bs]}")
+    if y_err > F32_ATOL or dx_err > F32_ATOL or dk_err > 1e-5 \
+            or any(o["c"]["launches"] != halo_expected for o in r):
+        raise RuntimeError(f"dp2 (c): out {y_err}, dx {dx_err}, dk {dk_err} over tolerance, "
+                           f"launches {[o['c']['launches'] for o in r]}")
+    return {"dp2_train": bs[0]["counts"][-1], "dp2_halo": r[0]["c"]["launches"]}
 
 
 def ptxas_report(log: str) -> dict:
@@ -1893,10 +2308,12 @@ def ptxas_report(log: str) -> dict:
 def main(argv: list[str] | None = None) -> int:
     """The whole run; ``--only K1,K2`` checks and times only those kernels
     (edges and every path's rows), ``--profile-train N1,N2`` profiles one
-    train step of each net and ``--trainer-workers 1,4`` runs one trainer
-    epoch for each loader worker count, and with any of them the run stops
-    there (no ``ok`` line): the pieces that can also be run from another
-    commit's tree, beside which this file is copied."""
+    train step of each net, ``--trainer-workers 1,4`` runs one trainer
+    epoch for each loader worker count, ``--data-parallel`` trainer_bf16
+    and the data-parallel phases and ``--dp-cards N`` the data-parallel
+    phase over N cards, and with any of them the run stops there
+    (no ``ok`` line): the pieces that can also be run from another commit's
+    tree, beside which this file is copied."""
     import argparse
 
     ap = argparse.ArgumentParser()
@@ -1904,6 +2321,10 @@ def main(argv: list[str] | None = None) -> int:
     ap.add_argument("--profile-train", default="", help="model names, comma-separated")
     ap.add_argument("--trainer-workers", default="",
                     help="loader worker counts, comma-separated: one trainer epoch each")
+    ap.add_argument("--data-parallel", action="store_true",
+                    help="only trainer_bf16 and the data-parallel phases")
+    ap.add_argument("--dp-cards", default=0, type=int,
+                    help="only the data-parallel phase over this many cards, NCCL")
     opts = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -1930,6 +2351,18 @@ def main(argv: list[str] | None = None) -> int:
     gen = torch.Generator(device=dev).manual_seed(0)
 
     specs = kernel_specs()
+    if opts.dp_cards:
+        if torch.cuda.device_count() < opts.dp_cards:
+            raise RuntimeError(f"--dp-cards {opts.dp_cards}: {torch.cuda.device_count()} cards")
+        run_data_parallel(dev, smi, opts.dp_cards, "nccl")
+        emit({"script_s": time.perf_counter() - T_START})
+        return 0
+    if opts.data_parallel:
+        _, trainer_row = run_trainer(dev)
+        run_dp_cli(trainer_row, smi)
+        run_data_parallel(dev, smi)
+        emit({"script_s": time.perf_counter() - T_START})
+        return 0
     if opts.only or opts.profile_train or opts.trainer_workers:
         for s in specs:
             if s["name"] in opts.only.split(","):
@@ -1960,12 +2393,14 @@ def main(argv: list[str] | None = None) -> int:
         launches[path] = serve_model(name, dev, N_REQUESTS)
     for name in ("psmnet_basic", "dispnet", "dispnetcorr", "iresnet"):
         launches[TRAIN_RUNS[name][0]] = run_training(dev, name)
-    launches["trainer"] = run_trainer(dev)
+    launches["trainer"], trainer_row = run_trainer(dev)
     check_gradients(dev, "dispnetcorr", tag="selfsup_grad_f32",
                     loss_name=SELFSUP_RUNS["dispnetcorr"][1])
     for name, (path, *_) in SELFSUP_RUNS.items():
         launches[path] = run_selfsup_training(dev, name)
-    launches["trainer_selfsup"] = run_trainer(dev, "trainer_selfsup_bf16")
+    launches["trainer_selfsup"], _ = run_trainer(dev, "trainer_selfsup_bf16")
+    launches["dp_cli"] = run_dp_cli(trainer_row, smi)
+    launches.update(run_data_parallel(dev, smi))
     # the shapes' launches in kernel_specs must add up to what each path launched
     for s in specs:
         for path in launches:

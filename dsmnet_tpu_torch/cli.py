@@ -1,9 +1,9 @@
 """Command-line entry point of the port (``dsmnet_tpu/cli.py``; reference
 main.py:14-50 + deploy/deploy.py).
 
-Modes: train / finetune / test / submit / deploy, with the JAX flags
-except the mesh and multihost ones (ROADMAP.md queue 1, "Parallel"), and
-``--device`` (default CUDA; without a card every mode raises).  Dataset
+Modes: train / finetune / test / submit / deploy, with the JAX flags and
+``--device`` (default CUDA, under a process group the rank's
+``cuda:LOCAL_RANK``; without a card every mode raises).  Dataset
 and loss selection use the reference's string DSLs
 ('kitti2015-tr_kitti2012-tr' concatenates datasets; 'supervised', or a
 photometric loss such as 'Cap_ds-mask', which trains self-supervised);
@@ -13,9 +13,24 @@ batch above 1 (a shifted sample is narrower than the crop, and a batch
 of mixed widths raises).  ``--path_weight`` takes the port's ``.pt``, an
 ``.npz`` of flax paths or a JAX ``.msgpack``.
 
+Data parallel: one process per card, each a rank of a ``(data, model)``
+mesh (``parallel.make_mesh``), launched by torchrun on one host, or with
+``--multihost`` by hand on each host.  ``--mesh-data`` is the data axis (0:
+every rank), and the mesh must cover every rank; ``--mesh-model`` above 1
+(spatial sharding) raises ``NotImplementedError``: it is not ported yet.
+Without ``--multihost`` ``--batchsize`` is the global batch, which every
+rank cuts from the same seeded order, decoding only its slice; with it
+every rank reads its share of the datasets (strided by rank) and
+``--batchsize`` is its own batch, so the global batch is ``P`` times it.
+The files (checkpoints, history, curves, submit's) are written by rank 0.
+
 Usage:
     python -m dsmnet_tpu_torch.cli --mode train --net psmnet --dataset synthetic \
         --batchsize 4 --shift_max 0 --dtype bfloat16 --lr 1e-3 --epochs 2
+    torchrun --nproc_per_node 4 -m dsmnet_tpu_torch.cli --mode train --net psmnet \
+        --dataset synthetic --batchsize 16 --shift_max 0 --dtype bfloat16 --mesh-data 4
+    python -m dsmnet_tpu_torch.cli --mode train ... --multihost --coordinator host0:29500 \
+        --num_processes 2 --process_id 0      # and --process_id 1 on the other host
     python -m dsmnet_tpu_torch.cli --mode train --net dispnetcorr --dataset synthetic \
         --loss_name Cap_ds-mask --batchsize 4 --shift_max 0 --dtype bfloat16 --epochs 2
     python -m dsmnet_tpu_torch.cli --mode deploy --net gcnet \
@@ -34,6 +49,7 @@ import logging
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -77,7 +93,23 @@ def build_parser() -> argparse.ArgumentParser:
                    help="write a torch.profiler trace of train steps 10-15 here")
     p.add_argument("--remat", action="store_true",
                    help="recompute heavy blocks in the backward (FLOPs for memory)")
-    p.add_argument("--device", default=None, type=str, help="default: cuda")
+    p.add_argument("--device", default=None, type=str,
+                   help="default: cuda (under a process group cuda:LOCAL_RANK)")
+    # data parallelism over processes, one card each
+    p.add_argument("--mesh-data", default=0, type=int,
+                   help="data-parallel mesh size (0 = every rank); the mesh must cover "
+                        "every rank")
+    p.add_argument("--mesh-model", default=1, type=int,
+                   help="spatial/model mesh size (above 1 not ported yet: raises)")
+    p.add_argument("--multihost", action="store_true",
+                   help="make the process group from --coordinator (else torchrun's "
+                        "environment); shard the datasets per rank, --batchsize per rank")
+    p.add_argument("--coordinator", default="", type=str,
+                   help="multihost: rank 0's address host:port (empty = torchrun's "
+                        "environment)")
+    p.add_argument("--num_processes", default=0, type=int,
+                   help="multihost: the number of ranks")
+    p.add_argument("--process_id", default=-1, type=int, help="multihost: this rank")
     # deploy
     p.add_argument("--path_left", default="10L.png", type=str)
     p.add_argument("--path_right", default="10R.png", type=str)
@@ -86,9 +118,10 @@ def build_parser() -> argparse.ArgumentParser:
     return p
 
 
-def _make_loaders(args, spec):
+def _make_loaders(args, spec, rank_slice=None):
     """(train loader or None, validation loader) for ``args.mode``
-    (``dsmnet_tpu/cli.py:85-126``)."""
+    (``dsmnet_tpu/cli.py:85-126``); ``rank_slice`` (index, count) cuts each
+    train and validation batch into the ranks' slices."""
     from .data import (
         BatchLoader,
         SyntheticStereoDataset,
@@ -110,7 +143,7 @@ def _make_loaders(args, spec):
         else:
             ds = dataset_by_name(args.dataset, args.root, tf, train=False)
         return None, BatchLoader(ds, args.batchsize, shuffle=False,
-                                 num_workers=args.num_workers)
+                                 num_workers=args.num_workers, rank_slice=rank_slice)
 
     if supervised:
         tf_train = supervised_train_transform(size_crop, args.scale_delt, args.shift_max)
@@ -126,9 +159,10 @@ def _make_loaders(args, spec):
         ds_train = dataset_by_name(args.dataset, args.root, tf_train, train=True)
         ds_val = dataset_by_name(args.dataset_val, root_val, tf_val, train=False)
     loader_train = BatchLoader(ds_train, args.batchsize, shuffle=True,
-                               num_workers=args.num_workers, seed=args.seed)
+                               num_workers=args.num_workers, seed=args.seed,
+                               rank_slice=rank_slice)
     loader_val = BatchLoader(ds_val, args.batchsize, shuffle=False,
-                             num_workers=args.num_workers)
+                             num_workers=args.num_workers, rank_slice=rank_slice)
     return loader_train, loader_val
 
 
@@ -152,22 +186,72 @@ def deploy(args) -> np.ndarray:
     return disp
 
 
+def _make_mesh(args):
+    """The (data, model) mesh over the ranks of the process group, or None
+    for a single process.  ``--mesh-model`` above 1 raises
+    ``NotImplementedError``, a mesh that does not cover every rank
+    ``ValueError`` (a rank outside it would train alone on the same files:
+    JAX leaves spare devices idle)."""
+    from .parallel import make_mesh
+
+    if args.mesh_model > 1:
+        raise NotImplementedError(
+            f"--mesh-model {args.mesh_model}: spatial sharding is not ported yet "
+            "(ROADMAP.md, queue 1, 'Spatial sharding')")
+    if dist.is_available() and dist.is_initialized():
+        return make_mesh(data=args.mesh_data or None, model=args.mesh_model)
+    if args.mesh_data > 1:
+        raise ValueError(f"--mesh-data {args.mesh_data} exceeds the one rank of a single "
+                         "process: launch the ranks with torchrun or --multihost")
+    return None
+
+
 def main(argv=None):
     logging.basicConfig(
         level=logging.INFO, format=" %(asctime)s - %(levelname)s - %(message)s"
     )
     args = build_parser().parse_args(argv)
+    from .parallel import init_distributed
+
+    had_group = dist.is_available() and dist.is_initialized()
+    if args.multihost:
+        init_distributed(coordinator_address=args.coordinator or None,
+                         num_processes=args.num_processes or None,
+                         process_id=args.process_id if args.process_id >= 0 else None)
+    else:
+        init_distributed()  # torchrun's environment, or a single process: no group
+    try:
+        return _run(args)
+    finally:
+        if not had_group and dist.is_initialized():
+            dist.destroy_process_group()
+
+
+def _run(args):
     if args.mode == "deploy":
         return deploy(args)
 
     from .config import resolve_device
     from .losses import parse_loss_name
     from .models import create_model
+    from .parallel import shard_dataset_for_host
+    from .parallel.mesh import axis_index, axis_size
     from .train import TrainConfig, Trainer
 
     resolve_device(args.device)  # no card: raise before building any loader
+    mesh = _make_mesh(args)
     spec = parse_loss_name(args.loss_name, create_model(args.net, args.maxdisparity).count_levels)
-    loader_train, loader_val = _make_loaders(args, spec)
+    # every rank evaluates submit's batches whole; otherwise, without
+    # --multihost, each cuts its slice of every global batch, and with it
+    # each reads its own share of the datasets
+    rank_slice = None
+    if mesh is not None and not args.multihost and args.mode != "submit":
+        rank_slice = (axis_index(mesh, "data"), axis_size(mesh, "data"))
+    loader_train, loader_val = _make_loaders(args, spec, rank_slice)
+    if mesh is not None and args.multihost and args.mode != "submit":
+        for loader in (loader_train, loader_val):
+            if loader is not None:
+                shard_dataset_for_host(loader.dataset)
     cfg = TrainConfig(
         mode=args.mode, epochs=args.epochs, net=args.net,
         maxdisparity=args.maxdisparity, loss_name=args.loss_name, lr=args.lr,
@@ -178,8 +262,9 @@ def main(argv=None):
         path_weight=args.path_weight, flag_model=args.flag_model,
         seed=args.seed, plot_curves=args.plot_curves, dtype=args.dtype,
         profile_dir=args.profile_dir, remat=args.remat, device=args.device,
+        multihost=args.multihost and mesh is not None,
     )
-    trainer = Trainer(cfg, loader_train=loader_train, loader_val=loader_val)
+    trainer = Trainer(cfg, loader_train=loader_train, loader_val=loader_val, mesh=mesh)
     result = trainer.submit() if args.mode == "submit" else trainer.start()
     return trainer, result
 

@@ -14,8 +14,10 @@ has a hand-written kernel has one switch:
 from __future__ import annotations
 
 import contextlib
+import os
 
 import torch
+import torch.distributed
 
 OPS = ("conv2d", "conv3d", "conv3d_s2", "deconv3d", "cost_volume", "corr1d", "fused_costvol")
 _MODES = (None, "kernel", "plain")
@@ -52,8 +54,12 @@ def implementation(mode: str | None, ops=OPS):
 
 
 def resolve_device(device=None) -> torch.device:
-    """``None`` means CUDA.  Raises when CUDA is asked for and absent:
-    the entry points never drop to the CPU on their own."""
+    """``None`` means CUDA: under a process group the rank's card,
+    ``cuda:LOCAL_RANK`` (an explicit ``cuda:0`` pins every rank to that
+    card).  Raises when CUDA is asked for and absent: the entry points
+    never drop to the CPU on their own."""
+    if device is None and torch.distributed.is_available() and torch.distributed.is_initialized():
+        device = f"cuda:{int(os.environ.get('LOCAL_RANK', '0'))}"
     dev = torch.device("cuda" if device is None else device)
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("CUDA is not available; pass device='cpu' to run on the CPU")

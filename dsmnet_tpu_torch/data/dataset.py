@@ -192,10 +192,17 @@ class BatchLoader:
 
     Yields (batch (N, H, W, C) float32, list of file names);
     ``drop_last=False`` like the reference's DataLoaders.
+
+    ``rank_slice=(index, count)``: each batch of ``batch_size`` is the
+    global batch of a data-parallel step over ``count`` ranks, cut into
+    ``count`` equal slices in rank order; this loader decodes and yields
+    slice ``index`` only.  Every rank's loader has the same seed, so the
+    ranks cut the same global batches.  A batch that ``count`` does not
+    divide raises.
     """
 
     def __init__(self, dataset, batch_size=1, shuffle=False, num_workers=4,
-                 drop_last=False, seed=0, prefetch=4):
+                 drop_last=False, seed=0, prefetch=4, rank_slice=None):
         self.dataset = dataset
         self.batch_size = batch_size
         self.shuffle = shuffle
@@ -203,6 +210,7 @@ class BatchLoader:
         self.drop_last = drop_last
         self.seed = seed
         self.prefetch = prefetch
+        self.rank_slice = rank_slice
         self._epoch = 0
 
     def __len__(self):
@@ -236,6 +244,13 @@ class BatchLoader:
         ]
         if self.drop_last and batches and len(batches[-1]) < self.batch_size:
             batches.pop()
+        if self.rank_slice is not None:
+            index, count = self.rank_slice
+            for b in batches:
+                if len(b) % count:
+                    raise ValueError(f"a batch of {len(b)} does not split over {count} ranks")
+            batches = [b[index * (len(b) // count):(index + 1) * (len(b) // count)]
+                       for b in batches]
 
         nw = min(self.num_workers, max(1, len(batches)))
         stop = threading.Event()

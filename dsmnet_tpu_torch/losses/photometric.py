@@ -16,6 +16,11 @@ of the two views' disparities (loss.py:393-404); the image pyramid by ::2
 striding (loss.py:17-22).  The < 1024 valid-pixel fallback of ``common``
 and ``depthmono`` is a ``torch.where`` on device tensors, so the loss
 never waits for the device.
+
+Under a data-parallel sharding context (``parallel/context.py``) the
+similarity gate and the fallback read the global batch's means and
+valid count, and each plain mean is this rank's share (its sum over the
+global count), so that the ranks' losses sum to the global batch's.
 """
 
 from __future__ import annotations
@@ -28,6 +33,7 @@ from ..ops.gradients import c_ds1, c_ds2, c_ds3, c_imdiff1
 from ..ops.resize import upsample_bilinear
 from ..ops.ssim import ssim_map
 from ..ops.warp import imwarp, warp_disparity
+from ..parallel.context import data_mean, data_sum, mean_share
 
 __all__ = ["photometric_pyramid_loss", "weight_common", "PhotoLossConfig"]
 
@@ -50,19 +56,15 @@ def _wfun(sim: torch.Tensor) -> torch.Tensor:
     return (sim - 0.75).clamp(min=0.0) / 2.0 + 0.001
 
 
-def _masked_mean(x: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
-    m = mask.to(x.dtype)
-    return (x * m).sum() / m.sum().clamp(min=1.0)
-
-
 def _similarity(ssim: torch.Tensor, mask_ap: torch.Tensor, fallback_all: bool) -> torch.Tensor:
     """Detached mean SSIM over the valid-warp mask; ``fallback_all`` takes
     the mean over every pixel when fewer than 1024 are valid
-    (loss.py:157-158)."""
+    (loss.py:157-158).  Both means and the count are the global batch's."""
     ssim = ssim.detach()
-    sim = _masked_mean(ssim, mask_ap)
+    m = mask_ap.to(ssim.dtype)
+    sim = data_sum((ssim * m).sum()) / data_sum(m.sum()).clamp(min=1.0)
     if fallback_all:
-        sim = torch.where(mask_ap.sum() < 1024, ssim.mean(), sim)
+        sim = torch.where(data_sum(mask_ap.sum()) < 1024, data_mean(ssim), sim)
     return sim
 
 
@@ -106,22 +108,22 @@ def _level_loss(cfg: PhotoLossConfig, im, im_wrap, disp, aux, factor, w_common):
         invalid = aux == 0
 
     C_ap, C_lr = _apply_occlusion(C_ap, C_lr, invalid, mask_ap, w_common)
-    C_ap_m, C_lr_m = C_ap.mean(), C_lr.mean()
+    C_ap_m, C_lr_m = mean_share(C_ap), mean_share(C_lr)
 
     if cfg.kind == "common":
-        return C_ap_m * _BASE_W_AP + c_ds3(im, disp).mean() * w + C_lr_m * w
+        return C_ap_m * _BASE_W_AP + mean_share(c_ds3(im, disp)) * w + C_lr_m * w
     if cfg.kind == "depthmono":
-        return C_ap_m * _BASE_W_AP + c_ds1(im, disp).mean() * w + C_lr_m * w
+        return C_ap_m * _BASE_W_AP + mean_share(c_ds1(im, disp)) * w + C_lr_m * w
     if cfg.kind == "cap":
         C = C_ap_m * _BASE_W_AP
         if cfg.with_ds:
-            C = C + c_ds1(im, disp).mean() * (w / factor)
+            C = C + mean_share(c_ds1(im, disp)) * (w / factor)
         if cfg.with_lr:
             C = C + C_lr_m * w
         return C
     if cfg.kind == "sssmnet":
-        return (C_ap_m * _BASE_W_AP + c_ds2(im, disp).mean() * (w / factor) + C_lr_m * w
-                + disp.abs().mean() * _W_MDH)
+        return (C_ap_m * _BASE_W_AP + mean_share(c_ds2(im, disp)) * (w / factor) + C_lr_m * w
+                + mean_share(disp.abs()) * _W_MDH)
     raise ValueError(cfg.kind)
 
 

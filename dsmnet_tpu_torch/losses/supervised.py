@@ -7,6 +7,10 @@ plus 0.1 * mean(clip(|dx| + |dy|, 0, 1)) over the same mask when
 ``flag_smooth``.  Levels are combined with the curriculum weights,
 indexed by *scale*: PSMNet returns scales [0, 0, 0], so all three heads
 take ``weights[0]``.
+
+Under a data-parallel sharding context (``parallel/context.py``) each
+rank's loss is its share of the loss of the global batch: the mask count
+is global, so the ranks' losses sum to it.
 """
 
 from __future__ import annotations
@@ -15,15 +19,18 @@ import torch
 
 from ..ops.gradients import diff1_dx, diff1_dy
 from ..ops.resize import upsample_bilinear
+from ..parallel.context import data_sum
 
 __all__ = ["supervised_level_loss", "supervised_pyramid_loss"]
 
 
 def supervised_level_loss(disp_gt: torch.Tensor, disp: torch.Tensor, flag_smooth: bool = False,
                           factor: float = 1.0) -> torch.Tensor:
-    """Masked L1 (+ optional clipped smoothness) at one level."""
+    """Masked L1 (+ optional clipped smoothness) at one level.  Under a
+    sharding context this rank's share: its masked sums over the global
+    count."""
     mask = (disp_gt > 0).to(disp.dtype)
-    count = mask.sum().clamp(min=1.0)
+    count = data_sum(mask.sum()).clamp(min=1.0)
     loss = ((disp_gt - disp).abs() * mask).sum() / count
     if flag_smooth:
         dxdy = (diff1_dx(disp).abs() + diff1_dy(disp).abs()) / factor

@@ -30,6 +30,7 @@ import torch
 import torch.nn as nn
 
 from ..ops.cost_volume import concat_cost_volume
+from ..parallel.context import shard_activation
 from ..ops.softargmin import soft_argmin
 from .layers import ConvBN, DeconvBN, ResStackGC, crop_add, remat, reset_parameters, siamese
 
@@ -114,6 +115,8 @@ class GCNet(nn.Module):
         if imL.shape != imR.shape:
             raise ValueError(f"image shapes differ: {tuple(imL.shape)} vs {tuple(imR.shape)}")
         fL, fR = siamese(self.layer2d, imL, imR)
+        # H-sharded under a spatial mesh axis (not ported yet: the identity)
+        fL, fR = shard_activation(fL), shard_activation(fR)
         h, w = imL.shape[1], imL.shape[2]
         disp = self.layer3d(fL, fR, self.maxdisparity // 2)[:, :h, :w, :]
         if clamp:

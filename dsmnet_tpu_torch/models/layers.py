@@ -24,12 +24,14 @@ import math
 from typing import Callable, Sequence
 
 import torch
+import torch.distributed as dist
 import torch.nn as nn
 import torch.nn.functional as F
 import torch.utils.checkpoint
 
 from ..ops.conv2d import conv2d_same
 from ..ops.conv3d import conv3d_s2, conv3d_same, deconv3d_k3s2
+from ..parallel import context as sharding
 
 __all__ = [
     "compute_dtype", "default_dtype", "conv_kernel_init", "scaled_conv_kernel_init",
@@ -58,10 +60,11 @@ def default_dtype():
 
 
 @contextlib.contextmanager
-def _recompute(dtype):
+def _recompute(dtype, ctx):
     token, dtoken = _recomputing.set(True), _compute_dtype.set(dtype)
     try:
-        yield
+        with sharding.activate(ctx):
+            yield
     finally:
         _compute_dtype.reset(dtoken)
         _recomputing.reset(token)
@@ -70,13 +73,14 @@ def _recompute(dtype):
 def remat(fn, *args):
     """``fn(*args)`` with its activations recomputed in the backward instead
     of kept (``torch.utils.checkpoint``, non-reentrant), as flax's
-    ``nn.remat``.  The recomputation runs in the compute dtype of the
-    forward (the backward may run on another thread) and, as the flax
-    recomputation mutates nothing, leaves the BN running statistics alone."""
-    dt = default_dtype()
+    ``nn.remat``.  The recomputation runs in the compute dtype and under the
+    sharding context of the forward (the backward may run on another
+    thread) and, as the flax recomputation mutates nothing, leaves the BN
+    running statistics alone."""
+    dt, ctx = default_dtype(), sharding.current()
     return torch.utils.checkpoint.checkpoint(
         fn, *args, use_reentrant=False,
-        context_fn=lambda: (contextlib.nullcontext(), _recompute(dt)))
+        context_fn=lambda: (contextlib.nullcontext(), _recompute(dt, ctx)))
 
 
 def conv_kernel_init(shape, generator: torch.Generator) -> torch.Tensor:
@@ -146,26 +150,43 @@ class Kernel(nn.Module):
 
 
 class _Moments(torch.autograd.Function):
-    """(E[x], E[x^2]) over every axis but the last, accumulated in ``acc``.
+    """(E[x], E[x^2]) over every axis but the last, accumulated in ``acc``,
+    and over the ranks of ``group`` (the data axis of a data-parallel
+    step: each rank's moments of its shard, of M elements a channel on
+    every rank, averaged in ``acc``), as XLA makes JAX's moments of a
+    sharded batch global.
 
     The backward, dx = (g_mean + 2 x g_sq) / M, runs in x's dtype: autograd
     of ``x.mean(dtype=float32)`` would build the broadcast gradient as a
     float32 activation-sized tensor and cast it back.  This is the
     gradient JAX's ``jnp.mean(x, dtype=f32)`` transposes to (a bf16
-    broadcast of the per-channel cotangent)."""
+    broadcast of the per-channel cotangent).  Over a group, g_mean and g_sq
+    are first summed over the ranks (every rank's loss reads the global
+    moments) and M is the global count: SyncBN's rule."""
 
     @staticmethod
-    def forward(ctx, x, acc):
+    def forward(ctx, x, acc, group):
         ctx.save_for_backward(x)
+        ctx.group = group
         axes = tuple(range(x.dim() - 1))
-        return x.mean(axes, dtype=acc), (x * x).mean(axes, dtype=acc)
+        mean, sq = x.mean(axes, dtype=acc), (x * x).mean(axes, dtype=acc)
+        if group is None:
+            return mean, sq
+        both = sharding.all_reduce_sum(torch.stack([mean, sq]), group, "bn_moments")
+        both /= dist.get_world_size(group)
+        return both[0].clone(), both[1].clone()
 
     @staticmethod
     @torch.autograd.function.once_differentiable
     def backward(ctx, g_mean, g_sq):
         x, = ctx.saved_tensors
         m = x.numel() // x.shape[-1]
-        return torch.addcmul((g_mean / m).to(x.dtype), x, (2 * g_sq / m).to(x.dtype)), None
+        if ctx.group is not None:
+            both = sharding.all_reduce_sum(torch.stack([g_mean, g_sq]), ctx.group,
+                                           "bn_moments_grad")
+            g_mean, g_sq = both[0], both[1]
+            m *= dist.get_world_size(ctx.group)
+        return torch.addcmul((g_mean / m).to(x.dtype), x, (2 * g_sq / m).to(x.dtype)), None, None
 
 
 class LeanBN(nn.Module):
@@ -176,7 +197,9 @@ class LeanBN(nn.Module):
     and normalization as x * inv + off with inv/off cast to x's dtype.
     In train mode the batch statistics carry the gradient; the running
     statistics update without one, and not again when :func:`remat`
-    recomputes the layer in the backward."""
+    recomputes the layer in the backward.  Under a sharding context the
+    batch statistics are those of the global batch (``_Moments``), so the
+    running statistics agree on every rank."""
 
     def __init__(self, features: int, momentum: float = 0.9, epsilon: float = 1e-5):
         super().__init__()
@@ -197,7 +220,8 @@ class LeanBN(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if self.training:
-            mean, sq = _Moments.apply(x, torch.promote_types(x.dtype, torch.float32))
+            mean, sq = _Moments.apply(x, torch.promote_types(x.dtype, torch.float32),
+                                      sharding.data_group())
             var = sq - mean * mean
             if not _recomputing.get():
                 self._update_running(mean, var)

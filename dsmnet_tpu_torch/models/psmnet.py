@@ -25,6 +25,7 @@ import torch.nn.functional as F
 from ..ops.conv3d import deconv3d_k3s2
 from ..ops.cost_volume import concat_cost_volume
 from ..ops.fused_costvol import cost_volume_conv3x3
+from ..parallel.context import shard_activation
 from ..ops.regression import trilinear_soft_argmin
 from ..ops.resize import resize_bilinear
 from .layers import (
@@ -195,6 +196,8 @@ class PSMNet(nn.Module):
         if imL.shape != imR.shape:
             raise ValueError(f"image shapes differ: {tuple(imL.shape)} vs {tuple(imR.shape)}")
         fL, fR = siamese(self.feature_extraction, imL, imR)
+        # H-sharded under a spatial mesh axis (not ported yet: the identity)
+        fL, fR = shard_activation(fL), shard_activation(fR)
 
         if self.fused_stem:
             cost0 = self.dres0_0(fL, fR)

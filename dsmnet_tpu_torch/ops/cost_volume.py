@@ -97,7 +97,10 @@ class _CostVolume(torch.autograd.Function):
 
 def concat_cost_volume(fL: torch.Tensor, fR: torch.Tensor, D: int,
                        mask_left: bool = True) -> torch.Tensor:
-    """Concatenation cost volume, (N,H,W,F) x2 -> (N,D,H,W,2F)."""
+    """Concatenation cost volume, (N,H,W,F) x2 -> (N,D,H,W,2F), H-sharded
+    under a spatial mesh axis (``parallel.context.shard_cost_volume``)."""
+    from ..parallel.context import shard_cost_volume
+
     if config.impl["cost_volume"] == "plain":
-        return concat_cost_volume_reference(fL, fR, D, mask_left)
-    return _CostVolume.apply(fL.contiguous(), fR.contiguous(), D, mask_left)
+        return shard_cost_volume(concat_cost_volume_reference(fL, fR, D, mask_left))
+    return shard_cost_volume(_CostVolume.apply(fL.contiguous(), fR.contiguous(), D, mask_left))

@@ -299,5 +299,8 @@ def cost_volume_conv3x3(fL, fR, kernel, D: int, mask_left: bool = True):
     fL/fR (N,H,W,F); kernel (3,3,3,2F,O) in DHWIO layout; returns
     (N,D,H,W,O) in fL's dtype — equal (up to float association) to
     ``cost_volume_conv3x3_reference``; in bf16 the sums run in float32 and
-    round once."""
-    return _CostVolumeConv.apply(fL, fR, kernel, D, mask_left)
+    round once.  H-sharded under a spatial mesh axis
+    (``parallel.context.shard_cost_volume``)."""
+    from ..parallel.context import shard_cost_volume
+
+    return shard_cost_volume(_CostVolumeConv.apply(fL, fR, kernel, D, mask_left))

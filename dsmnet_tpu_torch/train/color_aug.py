@@ -62,6 +62,12 @@ class SelfsupDraws:
         return SelfsupDraws(*(getattr(self, f.name).to(device)
                               for f in dataclasses.fields(self)))
 
+    def rows(self, start: int, stop: int) -> "SelfsupDraws":
+        """The draws of samples [start, stop) (a rank's shard of the global
+        batch's draws); eps is the step's."""
+        return SelfsupDraws(self.order[start:stop], self.u[start:stop],
+                            self.alpha[start:stop], self.eps)
+
 
 def selfsup_generator(seed: int, step: int) -> torch.Generator:
     """A CPU generator seeded by (seed, step): the draws of step ``step`` of

@@ -9,19 +9,22 @@ from __future__ import annotations
 
 import torch
 
+from ..parallel.context import data_sum
+
 __all__ = ["d1_epe", "AverageMeter"]
 
 
 def d1_epe(disp: torch.Tensor, disp_gt: torch.Tensor):
-    """(d1_percent, epe) as 0-d tensors; a batch with no valid pixel gives
-    (0, 0) rather than NaN, so meters can skip it."""
+    """(d1_percent, epe) as 0-d tensors, of the global batch under a
+    sharding context; a batch with no valid pixel gives (0, 0) rather than
+    NaN, so meters can skip it."""
     mask = (disp_gt > 0).to(disp.dtype)
-    count = mask.sum()
+    count = data_sum(mask.sum())
     safe = count.clamp(min=1.0)
     diff = (disp_gt - disp).abs()
-    epe = (diff * mask).sum() / safe
+    epe = data_sum((diff * mask).sum()) / safe
     good = (diff <= 3.0) | (diff / disp_gt.clamp(min=1e-9) <= 0.05)
-    d1 = 100.0 - 100.0 * (good.to(disp.dtype) * mask).sum() / safe
+    d1 = 100.0 - 100.0 * data_sum((good.to(disp.dtype) * mask).sum()) / safe
     zero = disp.new_zeros(())
     return torch.where(count > 0, d1, zero), torch.where(count > 0, epe, zero)
 

@@ -19,6 +19,14 @@ argument.
 The compute dtype is the caller's (``models.layers.compute_dtype``), as
 in the JAX bench.  The metrics are returned as 0-d device tensors, so a
 step does not wait for the device; reading one synchronises.
+
+Data parallel: under a sharding context (``parallel.activate``) each rank
+steps on its shard of the global batch.  Its loss is its share of the
+global loss (the losses' counts and means, and BN's moments, are global:
+``parallel/context.py``), so after the backward the step sums the
+gradients over the data group, in one flat bucket, and every rank takes
+the same Adam step that JAX's data-parallel step takes.  The reported
+loss, D1 and EPE are the global batch's.
 """
 
 from __future__ import annotations
@@ -26,6 +34,7 @@ from __future__ import annotations
 import torch
 
 from ..losses import PhotoLossConfig, photometric_pyramid_loss, supervised_pyramid_loss
+from ..parallel import context as sharding
 from .color_aug import SelfsupDraws, color_augment_batch
 from .metrics import d1_epe
 from .state import TrainState
@@ -50,19 +59,36 @@ def make_supervised_train_step(model: torch.nn.Module, opt: torch.optim.Optimize
         loss = supervised_pyramid_loss(dispL, disps, scales, weights, flag_smooth)
         _adam_step(state, opt, loss, lr)
         d1, epe = d1_epe(disps[0].detach(), dispL)
-        return {"loss": loss.detach(), "d1": d1, "epe": epe}
+        return {"loss": sharding.data_sum(loss.detach()), "d1": d1, "epe": epe}
 
     return step
 
 
+def _sum_gradients(opt: torch.optim.Optimizer, group) -> None:
+    """Every parameter's gradient summed over ``group``: one all-reduce of
+    the gradients flattened into one bucket, then copied back."""
+    grads = [p.grad for g in opt.param_groups for p in g["params"] if p.grad is not None]
+    flat = sharding.all_reduce_sum(torch.cat([g.reshape(-1) for g in grads]), group,
+                                   "grad_bucket")
+    offset = 0
+    for g in grads:
+        g.copy_(flat[offset:offset + g.numel()].view_as(g))
+        offset += g.numel()
+
+
 def _adam_step(state: TrainState, opt: torch.optim.Optimizer, loss: torch.Tensor,
                lr: float) -> None:
-    """Backward, then Adam at the step's learning rate (applied outside the
+    """Backward, the gradients summed over the data group under a sharding
+    context, then Adam at the step's learning rate (applied outside the
     moments, as JAX's -lr * u: train/steps.py:73-75)."""
     opt.zero_grad(set_to_none=True)
     loss.backward()
-    for group in opt.param_groups:
-        group["lr"] = float(lr)
+    group = sharding.data_group()
+    if group is not None:
+        with torch.profiler.record_function("grad_allreduce"):
+            _sum_gradients(opt, group)
+    for g in opt.param_groups:
+        g["lr"] = float(lr)
     opt.step()
     state.step += 1
 
@@ -79,7 +105,7 @@ def make_supervised_eval_step(model: torch.nn.Module, flag_smooth: bool = True):
         scales, disps = model(imL, imR)
         loss = supervised_pyramid_loss(dispL, disps, scales, weights, flag_smooth)
         d1, epe = d1_epe(disps[0], dispL)
-        return {"loss": loss, "d1": d1, "epe": epe, "disp": disps[0]}
+        return {"loss": sharding.data_sum(loss), "d1": d1, "epe": epe, "disp": disps[0]}
 
     return step
 
@@ -148,7 +174,7 @@ def make_selfsup_train_step(model: torch.nn.Module, opt: torch.optim.Optimizer,
         loss, disp, v = selfsup_loss(model, cfg, batch, nedge, weights, draws.to(batch.device))
         _adam_step(state, opt, loss, lr)
         d1, epe = _d1_epe_of_views(disp.detach(), v)
-        return {"loss": loss.detach(), "d1": d1, "epe": epe}
+        return {"loss": sharding.data_sum(loss.detach()), "d1": d1, "epe": epe}
 
     return step
 
@@ -164,6 +190,6 @@ def make_selfsup_eval_step(model: torch.nn.Module, cfg: PhotoLossConfig):
         model.eval()
         loss, disp, v = selfsup_loss(model, cfg, batch, 0, weights)
         d1, epe = _d1_epe_of_views(disp, v)
-        return {"loss": loss, "d1": d1, "epe": epe, "disp": disp}
+        return {"loss": sharding.data_sum(loss), "d1": d1, "epe": epe, "disp": disp}
 
     return step

@@ -15,6 +15,18 @@ latter crop a 64-pixel border with a ``-mask`` loss, and draw each step's
 augmentation from a generator seeded by (``seed`` + 1, the step), so a
 resumed run draws what an unbroken one would (JAX folds the step into
 ``PRNGKey(seed + 1)``).
+
+With a ``mesh`` (``parallel.make_mesh``; ``(data, 1)``: spatial sharding
+is not ported yet) every rank is a process of a data-parallel run, as
+JAX's ``Trainer(cfg, mesh=...)``: the state is replicated from data-rank
+0, the steps run under a ``ShardingContext`` (global BN moments, losses,
+metrics; the gradients summed over the ranks), each rank places its
+share of the global batch (``shard_batch`` of a global batch, or, from a
+loader cut by ``rank_slice`` or under ``cfg.multihost``, its own batch
+through ``global_batch_from_host_local``), and the meters count the
+global batch.  Checkpoints, the history, the curves and ``submit``'s
+files are written by the primary rank, and every rank waits at a
+barrier until they are.
 """
 
 from __future__ import annotations
@@ -35,6 +47,16 @@ from ..images import write_png16
 from ..losses import LossSpec, parse_loss_name
 from ..models import MODELS, create_model
 from ..models.layers import compute_dtype
+from ..parallel import (
+    ShardingContext,
+    activate,
+    global_batch_from_host_local,
+    is_primary_host,
+    replicate,
+    shard_batch,
+)
+from ..parallel.mesh import axis_index, axis_size
+from ..parallel.multihost import barrier
 from .metrics import AverageMeter
 from .state import (
     create_train_state,
@@ -87,7 +109,10 @@ class TrainConfig:
     dtype: str = "float32"  # compute dtype of the convolutions: float32 | bfloat16
     profile_dir: str = ""  # torch.profiler trace of steps 10-15 of the first epoch
     remat: bool = False  # recompute heavy blocks in the backward (FLOPs for memory)
-    device: str | None = None  # None = CUDA
+    device: str | None = None  # None = CUDA (under a process group: cuda:LOCAL_RANK)
+    # with a mesh: each rank's loaders yield its own batches (datasets
+    # strided by rank); the global batch is the ranks' batches in rank order
+    multihost: bool = False
 
 
 class Trainer:
@@ -96,11 +121,19 @@ class Trainer:
     ``times`` its per-step ``bt`` (whole step) and ``dt`` (waiting for
     data, and the batch's copy to the device) in seconds."""
 
-    def __init__(self, cfg: TrainConfig, loader_train=None, loader_val=None):
+    def __init__(self, cfg: TrainConfig, loader_train=None, loader_val=None, mesh=None):
         self.cfg = cfg
         self.device = config.resolve_device(cfg.device)
         self.loader_train = loader_train
         self.loader_val = loader_val
+        self.mesh = mesh
+        self._sharding_ctx = None
+        if mesh is not None:
+            if axis_size(mesh, "model") > 1:
+                raise NotImplementedError(
+                    "a mesh with model > 1 shards H, which is not ported yet: ROADMAP.md, "
+                    "queue 1, 'Spatial sharding'")
+            self._sharding_ctx = ShardingContext(mesh, "data", None)
 
         model_kwargs = {}
         if cfg.remat:
@@ -138,6 +171,8 @@ class Trainer:
                 _, last_epoch, self.best_prec = restored
                 self.epoch = last_epoch + 1
                 log.info("resumed checkpoint at epoch %d", self.epoch)
+        if mesh is not None:
+            replicate(self.state, mesh)
 
         nedge = 64 if self.spec.flag_mask else 0
         if self.spec.supervised:
@@ -154,18 +189,41 @@ class Trainer:
     def _weights(self, epoch):
         return self.spec.weights(epoch)
 
-    def _draws(self, n: int):
-        """The self-supervised step's draws for a batch of ``n``, from a
-        generator seeded by (seed + 1, step)."""
-        return draw_selfsup_params(selfsup_generator(self.cfg.seed + 1, self.state.step), n)
+    def _data_ranks(self) -> tuple[int, int]:
+        """(this rank's index, the number of ranks) on the data axis."""
+        if self.mesh is None:
+            return 0, 1
+        return axis_index(self.mesh, "data"), axis_size(self.mesh, "data")
 
-    def _place_batch(self, batch: np.ndarray) -> torch.Tensor:
-        return torch.from_numpy(np.ascontiguousarray(batch)).to(self.device)
+    def _draws(self, n: int):
+        """The self-supervised step's draws for this rank's batch of ``n``:
+        those of its rows of the global batch, drawn from a generator seeded
+        by (seed + 1, step), as JAX draws them inside its global step."""
+        index, count = self._data_ranks()
+        draws = draw_selfsup_params(selfsup_generator(self.cfg.seed + 1, self.state.step),
+                                    n * count)
+        return draws if count == 1 else draws.rows(index * n, (index + 1) * n)
+
+    def _place_batch(self, batch: np.ndarray, loader=None) -> tuple[torch.Tensor, int]:
+        """This rank's part of a host batch on its device, and the size of
+        the global batch: the whole batch without a mesh; with one, the
+        rank's slice of a global batch (``shard_batch``), or, when ``loader``
+        yields each rank's own batch (cut by ``rank_slice``, or under
+        ``multihost``), that batch (``global_batch_from_host_local``)."""
+        if self.mesh is None:
+            return torch.from_numpy(np.ascontiguousarray(batch)).to(self.device), len(batch)
+        if self.cfg.multihost or getattr(loader, "rank_slice", None) is not None:
+            t = global_batch_from_host_local(batch, self.mesh, device=self.device)
+            return t, len(batch) * axis_size(self.mesh, "data")
+        return shard_batch(batch, self.mesh).to(self.device), len(batch)
 
     def _ctx(self):
-        if self.cfg.dtype == "float32":
-            return contextlib.nullcontext()
-        return compute_dtype(getattr(torch, self.cfg.dtype))
+        stack = contextlib.ExitStack()
+        if self._sharding_ctx is not None:
+            stack.enter_context(activate(self._sharding_ctx))
+        if self.cfg.dtype != "float32":
+            stack.enter_context(compute_dtype(getattr(torch, self.cfg.dtype)))
+        return stack
 
     def _profiler(self):
         activities = [torch.profiler.ProfilerActivity.CPU]
@@ -194,14 +252,14 @@ class Trainer:
                         self._stop_profile(prof)
                         prof = None
                         t0 = time.time()  # the trace's export is no wait for data
-                n = batch.shape[0]
-                batch = self._place_batch(batch)
+                batch, n = self._place_batch(batch, self.loader_train)
                 meters["dt"].update(time.time() - t0)
                 with self._ctx():
                     if self.spec.supervised:
                         m = self._train_step(self.state, batch, lr, weights)
                     else:
-                        m = self._train_step(self.state, batch, lr, weights, self._draws(n))
+                        m = self._train_step(self.state, batch, lr, weights,
+                                             self._draws(batch.shape[0]))
                 m = {k: v.item() for k, v in m.items()}
                 meters["loss"].update(m["loss"], n)
                 if m["d1"] >= 0:
@@ -245,8 +303,7 @@ class Trainer:
         weights = self._weights(max(self.epoch, 0))
         meters = {k: AverageMeter() for k in ("loss", "d1", "epe")}
         for i, (batch, _names) in enumerate(self.loader_val):
-            n = batch.shape[0]
-            batch = self._place_batch(batch)
+            batch, n = self._place_batch(batch, self.loader_val)
             with self._ctx():
                 m = self._eval_step(self.state, batch, weights)
             m = {k: m[k].item() for k in ("loss", "d1", "epe")}
@@ -304,13 +361,15 @@ class Trainer:
 
                 is_best = vd1 < self.best_prec
                 self.best_prec = min(vd1, self.best_prec)
-                save_checkpoint(self.dirpath, self.state, epoch, self.best_prec, is_best)
-                os.makedirs(self.dirpath, exist_ok=True)
-                with open(hist_path + ".tmp", "w") as f:
-                    json.dump(hist, f)
-                os.replace(hist_path + ".tmp", hist_path)
-                if cfg.plot_curves:
-                    self._plot_curves(hist)
+                if is_primary_host():
+                    save_checkpoint(self.dirpath, self.state, epoch, self.best_prec, is_best)
+                    os.makedirs(self.dirpath, exist_ok=True)
+                    with open(hist_path + ".tmp", "w") as f:
+                        json.dump(hist, f)
+                    os.replace(hist_path + ".tmp", hist_path)
+                    if cfg.plot_curves:
+                        self._plot_curves(hist)
+                barrier()  # the files are written before any rank goes on
 
             elapsed = (time.time() - t_start) / 3600.0
             total = elapsed * (cfg.epochs - epoch0) / max(epoch + 1 - epoch0, 1)
@@ -344,7 +403,9 @@ class Trainer:
         first sample's disparity as a KITTI uint16 PNG (disparity x 256, at
         1/256 px), its time and, with ground truth, its D1 and EPE; the
         results go to ``<out_dir>/<dataset>_<flag_model>.json``, and a run
-        that finds that file returns it (stereo.py:124-137)."""
+        that finds that file returns it (stereo.py:124-137).  With a mesh
+        every rank evaluates every batch, outside the sharding context, as
+        JAX's submit does; the primary rank writes the files."""
         cfg = self.cfg
         dirpath = os.path.join(out_dir, f"{cfg.dataset}_{cfg.flag_model}")
         if os.path.exists(dirpath + ".json"):
@@ -357,13 +418,15 @@ class Trainer:
                 else:
                     log.info("submit(cached): %s | time %.3f", name, prior["time"][i])
             return prior
-        os.makedirs(dirpath, exist_ok=True)
+        primary = is_primary_host()
+        if primary:
+            os.makedirs(dirpath, exist_ok=True)
         results = {"filename": [], "time": [], "D1": [], "epe": []}
 
         weights = self._weights(0)
         t_end = time.time()
         for batch, names in self.loader_val:
-            batch = self._place_batch(batch)
+            batch = torch.from_numpy(np.ascontiguousarray(batch)).to(self.device)
             has_gt = batch.shape[-1] >= 7
             if not has_gt:
                 pad = batch.new_zeros(batch.shape[:-1] + (1,))
@@ -389,7 +452,10 @@ class Trainer:
             # (the reference wrote the raw float through cv2, truncating it
             # to uint8, stereo.py:172-174; JAX fixed that)
             d16 = np.clip(disp[0, :, :, 0] * 256.0, 0, 65535).astype(np.uint16)
-            write_png16(os.path.join(dirpath, out_name), d16)
-        with open(dirpath + ".json", "w") as f:
-            json.dump(results, f)
+            if primary:
+                write_png16(os.path.join(dirpath, out_name), d16)
+        if primary:
+            with open(dirpath + ".json", "w") as f:
+                json.dump(results, f)
+        barrier()
         return results

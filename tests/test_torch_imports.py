@@ -58,11 +58,13 @@ def test_port_imports_no_jax():
     res = _run(_IMPORT_ALL)
     assert res.returncode == 0, res.stderr
     count, names, bad, lazy = res.stdout.strip().split(" ", 3)
-    assert int(count) >= 44, res.stdout  # every module of the package was reached
+    assert int(count) >= 49, res.stdout  # every module of the package was reached
     for module in ("cli", "data.dataset", "data.transforms", "data.io", "data.paths",
                    "data.check", "train.trainer", "train.state", "utils.benchtime",
                    "utils.evaluate", "utils.viz", "ops.ssim", "ops.gradients",
-                   "losses.photometric", "train.color_aug", "train.steps"):
+                   "losses.photometric", "train.color_aug", "train.steps", "parallel",
+                   "parallel.context", "parallel.mesh", "parallel.multihost",
+                   "parallel.halo"):
         assert f"dsmnet_tpu_torch.{module}" in names.split("|"), module
     assert bad == "[]", f"the port pulled in {bad}"
     assert lazy == "[]", f"importing the port pulled in {lazy}"
@@ -81,6 +83,13 @@ _ENTRY_POINTS = {
     "cli_train": "from dsmnet_tpu_torch import cli\n"
                  "cli.main(['--mode', 'train', '--net', 'dispnet', '--maxdisparity', '16',"
                  " '--dataset', 'synthetic'])",
+    # a rank of torchrun (a gloo group without a card): cuda:LOCAL_RANK, not the CPU
+    "cli_train_rank": "import os\n"
+                      "os.environ.update(RANK='0', WORLD_SIZE='1', LOCAL_RANK='0',"
+                      " MASTER_ADDR='localhost', MASTER_PORT='0')\n"
+                      "from dsmnet_tpu_torch import cli\n"
+                      "cli.main(['--mode', 'train', '--net', 'dispnet', '--maxdisparity', '16',"
+                      " '--dataset', 'synthetic', '--mesh-data', '1'])",
     "trainer": "from dsmnet_tpu_torch.train import TrainConfig, Trainer\n"
                "Trainer(TrainConfig(net='dispnet', maxdisparity=16))",
     "trainer_selfsup": "from dsmnet_tpu_torch.train import TrainConfig, Trainer\n"

@@ -1,0 +1,439 @@
+"""Ranks of the port's data-parallel tests, run as processes on the CPU.
+
+``run_ranks(name, world, tmp_path, payload)`` starts ``world`` Python
+processes (``Ranks`` starts them and returns, so that the test computes
+its reference while they run); each makes a gloo process group through ``file://`` under
+``tmp_path`` (never a fixed port: the test workers run at once), calls
+``name(rank, world, payload)`` of this module with one CPU thread, and
+returns what it returned.  The test computes its JAX reference itself and
+passes numpy arrays in ``payload``: this module and the ranks import no
+JAX.  A rank that fails, or a run that outlasts its timeout, kills every
+rank and fails the test, so a hung collective never holds the suite; each
+group also has a 60 s timeout of its own.
+"""
+
+from __future__ import annotations
+
+import datetime
+import hashlib
+import os
+import pickle
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+import numpy as np
+import torch
+
+TESTS = Path(__file__).resolve().parent
+REPO = TESTS.parent
+GROUP_TIMEOUT = datetime.timedelta(seconds=60)
+
+
+class Ranks:
+    """``name(rank, world, payload)`` started in ``world`` processes; the
+    caller may compute its reference meanwhile, then read ``results()``."""
+
+    def __init__(self, name: str, world: int, tmp_path, payload=None, timeout: float = 120.0):
+        self.name, self.world, self.timeout = name, world, timeout
+        self.work = work = Path(tmp_path) / f"ranks_{name}_{time.monotonic_ns()}"
+        work.mkdir(parents=True)
+        with open(work / "payload.pkl", "wb") as f:
+            pickle.dump(payload, f)
+        path = os.pathsep.join(p for p in (str(REPO), str(TESTS), os.environ.get("PYTHONPATH"))
+                               if p)
+        env = dict(os.environ, PYTHONPATH=path, CUDA_VISIBLE_DEVICES="", OMP_NUM_THREADS="1")
+        for key in ("RANK", "WORLD_SIZE", "LOCAL_RANK", "MASTER_ADDR", "MASTER_PORT"):
+            env.pop(key, None)
+        self.procs, self.logs = [], []
+        self.deadline = time.monotonic() + timeout
+        for rank in range(world):
+            log = open(work / f"rank{rank}.log", "w")
+            code = (f"import torch_parallel_ranks as m; "
+                    f"m._main({name!r}, {rank}, {world}, {str(work)!r})")
+            self.procs.append(subprocess.Popen([sys.executable, "-c", code], env=env, cwd=work,
+                                               stdout=log, stderr=subprocess.STDOUT))
+            self.logs.append(log)
+
+    def __enter__(self) -> "Ranks":
+        return self
+
+    def __exit__(self, *exc) -> None:
+        for p in self.procs:  # a test that failed before reading the results
+            if p.poll() is None:
+                p.kill()
+            p.wait()
+        for log in self.logs:
+            log.close()
+
+    def results(self) -> list:
+        """Each rank's result; a rank that failed, or ranks still running at
+        the deadline, kill every rank and raise."""
+        failed = None
+        try:
+            while True:
+                codes = [p.poll() for p in self.procs]
+                bad = [r for r, c in enumerate(codes) if c not in (None, 0)]
+                if bad:
+                    failed = f"rank {bad[0]} exited with {codes[bad[0]]}"
+                    break
+                if all(c == 0 for c in codes):
+                    break
+                if time.monotonic() > self.deadline:
+                    failed = f"ranks still running after {self.timeout} s: {codes}"
+                    break
+                time.sleep(0.05)
+        finally:
+            for p in self.procs:
+                if p.poll() is None:
+                    p.kill()
+                p.wait()
+            for log in self.logs:
+                log.close()
+        if failed:
+            tails = "\n".join(f"--- rank {r}\n" + (self.work / f"rank{r}.log").read_text()[-3000:]
+                              for r in range(self.world))
+            raise AssertionError(f"{self.name}: {failed}\n{tails}")
+        out = []
+        for rank in range(self.world):
+            with open(self.work / f"result{rank}.pkl", "rb") as f:
+                out.append(pickle.load(f))
+        for path in self.work.glob("*.pkl"):  # weights: keep the disk free
+            path.unlink()
+        return out
+
+
+def run_ranks(name: str, world: int, tmp_path, payload=None, timeout: float = 120.0) -> list:
+    """``name(rank, world, payload)`` in ``world`` processes; their results."""
+    return Ranks(name, world, tmp_path, payload, timeout).results()
+
+
+def _main(name: str, rank: int, world: int, work: str) -> None:
+    from dsmnet_tpu_torch.parallel import init_distributed
+
+    torch.set_num_threads(1)
+    with open(Path(work) / "payload.pkl", "rb") as f:
+        payload = pickle.load(f)
+    if name not in _NO_GROUP:
+        init_distributed(f"file://{work}/rendezvous", world, rank, backend="gloo",
+                         timeout=GROUP_TIMEOUT)
+    result = globals()[name](rank, world, payload)
+    jax_like = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "dsmnet_tpu"))
+    if jax_like:
+        raise RuntimeError(f"a rank imported {jax_like}")
+    with open(Path(work) / f"result{rank}.pkl", "wb") as f:
+        pickle.dump(result, f)
+    if torch.distributed.is_initialized():
+        torch.distributed.destroy_process_group()
+
+
+def _np(t: torch.Tensor) -> np.ndarray:
+    return t.detach().cpu().numpy().copy()
+
+
+def _digest(t: torch.Tensor) -> str:
+    return hashlib.sha256(_np(t).tobytes()).hexdigest()
+
+
+def suite(rank, world, payload):
+    """Several rank functions in one group (a process costs ~3 s to start):
+    ``payload`` maps a key to (function name, its payload)."""
+    return {key: globals()[name](rank, world, p) for key, (name, p) in payload.items()}
+
+
+# ------------------------------------------------------------ parallel/
+
+def mesh_shapes(rank, world, payload):
+    """make_mesh's shapes, coordinates and errors on 4 ranks."""
+    from dsmnet_tpu_torch.parallel import make_mesh
+    from dsmnet_tpu_torch.parallel.mesh import axis_index, axis_size
+
+    out = {}
+    for key, kw in (("all", {}), ("2x2", {"data": 2, "model": 2}), ("model2", {"model": 2}),
+                    ("1x4", {"data": 1, "model": 4})):
+        mesh = make_mesh(**kw)
+        out[key] = (tuple(mesh.shape), mesh.mesh_dim_names, axis_size(mesh, "data"),
+                    axis_index(mesh, "data"), axis_index(mesh, "model"))
+    for key, kw in (("16x1", {"data": 16}), ("model3", {"model": 3}), ("2x1", {"data": 2})):
+        try:
+            make_mesh(**kw)
+            out[key] = None
+        except ValueError as exc:
+            out[key] = str(exc)
+    return out
+
+
+def halo(rank, world, payload):
+    """halo_conv2d of this rank's band of rows over a (1, world) mesh, and
+    the gradients of sum(out * g) with respect to the band and the kernel."""
+    from dsmnet_tpu_torch.parallel import halo_conv2d, make_mesh
+
+    mesh = make_mesh(data=1, model=world)
+    x, k, g = (torch.from_numpy(payload[key]) for key in ("x", "k", "g"))
+    rows = x.shape[1] // world
+    band = slice(rank * rows, (rank + 1) * rows)
+    xl = x[:, band].clone().requires_grad_(True)
+    k = k.clone().requires_grad_(True)
+    out = halo_conv2d(xl, k, mesh, axis_name="model")
+    (out * g[:, band]).sum().backward()
+    return {"out": _np(out), "dx": _np(xl.grad), "dk": _np(k.grad)}
+
+
+def lean_bn(rank, world, payload):
+    """A float64 LeanBN in train mode on this rank's samples, under the data
+    axis of a (world, 1) mesh: output, gradients, running statistics and
+    the all-reduces it made."""
+    from dsmnet_tpu_torch.models.layers import LeanBN
+    from dsmnet_tpu_torch.parallel import ShardingContext, activate, make_mesh
+    from dsmnet_tpu_torch.parallel import context
+
+    x, g = torch.from_numpy(payload["x"]), torch.from_numpy(payload["g"])
+    per = x.shape[0] // world
+    part = slice(rank * per, (rank + 1) * per)
+    bn = LeanBN(x.shape[-1]).double()
+    with torch.no_grad():
+        bn.scale.copy_(torch.from_numpy(payload["scale"]))
+        bn.bias.copy_(torch.from_numpy(payload["bias"]))
+    xl = x[part].clone().requires_grad_(True)
+    before = dict(context.COLLECTIVES)
+    with activate(ShardingContext(make_mesh(data=world))):
+        y = bn(xl)
+    (y * g[part]).sum().backward()
+    made = {k: v - before.get(k, 0) for k, v in context.COLLECTIVES.items()
+            if v != before.get(k, 0)}
+    return {"y": _np(y), "dx": _np(xl.grad), "dscale": _np(bn.scale.grad),
+            "dbias": _np(bn.bias.grad), "mean": _np(bn.mean), "var": _np(bn.var),
+            "collectives": made}
+
+
+def losses(rank, world, payload):
+    """This rank's shares of the photometric losses (the fallback kind
+    ``depthmono`` and ``cap``), the supervised loss and D1/EPE on its
+    samples, with the gradients of the losses with respect to its
+    disparities."""
+    from dsmnet_tpu_torch.losses import PhotoLossConfig, photometric_pyramid_loss
+    from dsmnet_tpu_torch.losses import supervised_pyramid_loss
+    from dsmnet_tpu_torch.ops.warp import imwarp
+    from dsmnet_tpu_torch.parallel import ShardingContext, activate, make_mesh
+    from dsmnet_tpu_torch.train.metrics import d1_epe
+
+    t = {k: torch.from_numpy(v[rank:rank + 1]) for k, v in payload.items()}
+    out = {"valid": int((imwarp(t["imR"], t["disp"])[..., :1] != 0).sum())}
+    with activate(ShardingContext(make_mesh(data=world))):
+        for kind in ("depthmono", "cap"):
+            disp, disp1 = (t[k].clone().requires_grad_(True) for k in ("disp", "disp1"))
+            loss = photometric_pyramid_loss(
+                PhotoLossConfig(kind, True), t["imR"], t["imL"], [disp], [0], (0, 0),
+                t["imR1"], t["imL1"], [disp1], [0], (0, 0), np.ones(1))
+            loss.backward()
+            out[kind] = (_np(loss), _np(disp.grad), _np(disp1.grad))
+        disp = t["disp"].clone().requires_grad_(True)
+        loss = supervised_pyramid_loss(t["gt"], [disp], [0], np.ones(1))
+        loss.backward()
+        out["supervised"] = (_np(loss), _np(disp.grad))
+        out["d1_epe"] = tuple(_np(v) for v in d1_epe(t["disp"], t["gt"]))
+    return out
+
+
+def placement(rank, world, payload):
+    """shard_batch, replicate and global_batch_from_host_local on 2 ranks."""
+    from dsmnet_tpu_torch.models import create_model
+    from dsmnet_tpu_torch.parallel import (
+        global_batch_from_host_local,
+        make_mesh,
+        replicate,
+        shard_batch,
+    )
+    from dsmnet_tpu_torch.train import create_train_state
+
+    mesh = make_mesh(data=world)
+    b = payload["batch"]
+    out = {"shard": _np(shard_batch(b, mesh)), "shard_tensor": _np(shard_batch(
+        torch.from_numpy(b), mesh))}
+    try:
+        shard_batch(b[:3], mesh)
+    except ValueError as exc:
+        out["shard_odd"] = str(exc)
+    # each rank draws other weights and takes one Adam step of its own;
+    # replicate gives every rank rank 0's parameters, statistics and moments
+    model = create_model("gcnet", 16).reset_parameters(torch.Generator().manual_seed(rank))
+    state, opt = create_train_state(model, device="cpu")
+    for p in model.parameters():
+        p.grad = torch.full_like(p, float(rank + 1))
+    opt.step()
+    for buf in model.buffers():
+        buf.fill_(float(rank + 2))
+    state.step = 5 + rank
+    replicate(state, mesh)
+    out["state"] = {k: _np(v) for k, v in model.state_dict().items()}
+    out["adam"] = [_np(opt.state[p]["exp_avg"]) for p in model.parameters()]
+    out["step"] = state.step
+    local = b[2 * rank:2 * rank + 2]
+    out["local"] = _np(global_batch_from_host_local(local, mesh, device="cpu"))
+    try:
+        global_batch_from_host_local(b[:2 + rank], mesh)
+    except ValueError as exc:
+        out["mismatch"] = str(exc)
+    return out
+
+
+def mesh_checks(rank, world, payload):
+    """What refuses to run on 2 ranks (a Trainer on a mesh with model > 1,
+    the CLI's --mesh-model 2 and a --mesh-data that leaves a rank out), and
+    a Trainer's placement and draws on a (2, 1) mesh."""
+    from dsmnet_tpu_torch import cli
+    from dsmnet_tpu_torch.parallel import make_mesh
+    from dsmnet_tpu_torch.train import TrainConfig, Trainer
+
+    out = {}
+    try:
+        Trainer(TrainConfig(net="dispnet", maxdisparity=16, device="cpu"),
+                mesh=make_mesh(data=1, model=2))
+    except NotImplementedError as exc:
+        out["trainer_model2"] = str(exc)
+    # a Trainer on a (2, 1) mesh places its part of a global batch, or of a
+    # loader's per-rank batch, and draws its rows of the global batch's draws
+    t = Trainer(TrainConfig(net="gcnet", maxdisparity=16, loss_name="Cap_ds-mask",
+                            device="cpu"), mesh=make_mesh(data=world))
+    batch = np.arange(4 * 2 * 3 * 7, dtype=np.float32).reshape(4, 2, 3, 7)
+    sliced = type("Loader", (), {"rank_slice": (rank, world)})()
+    out["place_global"] = [_np(a) if torch.is_tensor(a) else a for a in t._place_batch(batch)]
+    out["place_local"] = [_np(a) if torch.is_tensor(a) else a
+                          for a in t._place_batch(batch[:2], sliced)]
+    d = t._draws(2)
+    out["draws"] = [_np(v) for v in (d.order, d.u, d.alpha, d.eps)]
+    base = ["--mode", "train", "--net", "dispnet", "--maxdisparity", "16", "--dataset",
+            "synthetic", "--device", "cpu"]
+    for key, flags in (("cli_model2", ["--mesh-model", "2"]),
+                       ("cli_data1", ["--mesh-data", "1"]), ("cli_data4", ["--mesh-data", "4"])):
+        try:
+            cli.main(base + flags)
+        except (NotImplementedError, ValueError) as exc:
+            out[key] = (type(exc).__name__, str(exc))
+    out["group_kept"] = torch.distributed.is_initialized()
+    return out
+
+
+_NO_GROUP = {"init_paths"}
+
+
+def init_paths(rank, world, payload):
+    """init_distributed from --coordinator-style arguments (host:port), then,
+    after that group is gone, from torchrun's environment (env://)."""
+    import torch.distributed as dist
+
+    from dsmnet_tpu_torch.parallel import init_distributed
+
+    out = {"none": init_distributed()}  # no coordinator, no environment: one process
+    made = init_distributed(f"localhost:{payload['port']}", world, rank, backend="gloo",
+                            timeout=GROUP_TIMEOUT)
+    x = torch.tensor([float(rank + 1)])
+    dist.all_reduce(x)
+    out["coordinator"] = (made, dist.get_rank(), dist.get_world_size(), x.item())
+    dist.destroy_process_group()
+    os.environ.update(RANK=str(rank), WORLD_SIZE=str(world), MASTER_ADDR="localhost",
+                      MASTER_PORT=str(payload["env_port"]))
+    made = init_distributed(backend="gloo", timeout=GROUP_TIMEOUT)
+    x = torch.tensor([float(rank + 1)])
+    dist.all_reduce(x)
+    out["env"] = (made, dist.get_rank(), dist.get_world_size(), x.item(),
+                  dist.get_backend())
+    return out
+
+
+# --------------------------------------------------------- train steps
+
+def _grads_params_buffers(model, rank: int) -> dict:
+    """The gradients, parameters and buffers after a step: rank 0's arrays,
+    and every rank's digests (the ranks must agree to the bit)."""
+    state = {"grads": {k: p.grad for k, p in model.named_parameters()},
+             "params": dict(model.named_parameters()), "buffers": dict(model.named_buffers())}
+    out = {"digest": {kind: {k: _digest(v) for k, v in d.items()} for kind, d in state.items()}}
+    if rank == 0:
+        out.update({kind: {k: _np(v) for k, v in d.items()} for kind, d in state.items()})
+    return out
+
+
+def supervised_step(rank, world, payload):
+    """One float64 supervised step of the port's model on this rank's shard
+    of the global batch, under a (world, 1) mesh, from the flax weights."""
+    from dsmnet_tpu_torch import interop
+    from dsmnet_tpu_torch.models import create_model
+    from dsmnet_tpu_torch.parallel import ShardingContext, activate, make_mesh, replicate
+    from dsmnet_tpu_torch.parallel import shard_batch
+    from dsmnet_tpu_torch.train import create_train_state, make_supervised_train_step
+
+    tm = create_model(payload["net"], payload["maxdisp"]).double()
+    interop.load_flax_variables(tm, payload["params"], payload["batch_stats"])
+    mesh = make_mesh(data=world)
+    state, opt = create_train_state(tm, device="cpu")
+    replicate(state, mesh)
+    batch = shard_batch(payload["batch"], mesh)
+    with activate(ShardingContext(mesh)):
+        m = make_supervised_train_step(tm, opt)(state, batch, payload["lr"], payload["weights"])
+    return {**{k: v.item() for k, v in m.items()}, **_grads_params_buffers(tm, rank),
+            "step": state.step}
+
+
+def selfsup_step(rank, world, payload):
+    """One float64 self-supervised step on this rank's shard, with its rows
+    of the global batch's draws."""
+    from dsmnet_tpu_torch import interop
+    from dsmnet_tpu_torch.losses import parse_loss_name
+    from dsmnet_tpu_torch.models import create_model
+    from dsmnet_tpu_torch.parallel import ShardingContext, activate, make_mesh, shard_batch
+    from dsmnet_tpu_torch.train import create_train_state, make_selfsup_train_step
+
+    tm = create_model(payload["net"], payload["maxdisp"]).double()
+    interop.load_flax_variables(tm, payload["params"])
+    spec = parse_loss_name(payload["loss_name"], tm.count_levels, 10)
+    mesh = make_mesh(data=world)
+    state, opt = create_train_state(tm, device="cpu")
+    batch = shard_batch(payload["batch"], mesh)
+    n = batch.shape[0]
+    draws = payload["draws"].rows(rank * n, (rank + 1) * n)
+    with activate(ShardingContext(mesh)):
+        m = make_selfsup_train_step(tm, opt, spec.photo, payload["nedge"])(
+            state, batch, payload["lr"], payload["weights"], draws)
+    return {**{k: v.item() for k, v in m.items()}, **_grads_params_buffers(tm, rank)}
+
+
+def trainer(rank, world, payload):
+    """The port's Trainer on a (world, 1) mesh through ``payload["cfg"]``,
+    with loaders cut into the ranks' slices: its history, weights and
+    files; then what a Trainer of ``payload["resume_cfg"]`` resumes from."""
+    from dsmnet_tpu_torch.data import BatchLoader, SyntheticStereoDataset, eval_transform
+    from dsmnet_tpu_torch.parallel import make_mesh
+    from dsmnet_tpu_torch.train import TrainConfig, Trainer
+
+    mesh = make_mesh(data=world)
+
+    def loader(shuffle):
+        ds = SyntheticStereoDataset(n=payload["n"], hw=payload["hw"], max_disp=16,
+                                    transform=eval_transform())
+        return BatchLoader(ds, batch_size=payload["batch"], shuffle=shuffle, num_workers=1,
+                           seed=0, rank_slice=(rank, world))
+
+    t = Trainer(TrainConfig(**payload["cfg"], device="cpu"), loader_train=loader(True),
+                loader_val=loader(False), mesh=mesh)
+    out = {"epoch0": t.epoch, "step0": t.state.step}
+    out["hist"] = t.start()
+    state = t.model.state_dict()
+    out["digest"] = {k: _digest(v) for k, v in state.items()}
+    if rank == 0:
+        out["state"] = {k: _np(v) for k, v in state.items()}
+    out["step"] = t.state.step
+    out["files"] = sorted(os.listdir(t.dirpath))
+    # a resumed Trainer on every rank, from what rank 0 wrote: the state this
+    # rank ended with, Adam's moments included
+    t2 = Trainer(TrainConfig(**payload["resume_cfg"], device="cpu"), loader_train=loader(True),
+                 loader_val=loader(False), mesh=mesh)
+    moments = lambda tr: [tr.state.opt.state[p][k] for p in tr.model.parameters()
+                          for k in ("exp_avg", "exp_avg_sq")]
+    out["resumed"] = {
+        "epoch0": t2.epoch, "step0": t2.state.step,
+        "same_state": all(torch.equal(v, state[k]) for k, v in t2.model.state_dict().items()),
+        "same_moments": all(torch.equal(a, b) for a, b in zip(moments(t2), moments(t))),
+        "moments_nonzero": bool(moments(t2)[0].abs().max() > 0)}
+    return out
