@@ -6,6 +6,8 @@
     python3 chip_smoke.py --trainer-workers 1,4,16
     python3 chip_smoke.py --data-parallel
     python3 chip_smoke.py --dp-cards 4
+    python3 chip_smoke.py --spatial
+    python3 chip_smoke.py --sp-cards 4
 
 The second form runs only the named kernels' checks and timings (step 2)
 and one profiled bf16 train step of each named model, and prints no ``ok``
@@ -16,7 +18,9 @@ fourth runs step 10's ``trainer_bf16`` and then step 12's data-parallel
 phases, with their launch checks but without the kernel rows, and prints
 no ``ok`` line; the fifth runs step 12's ``dp2_shared_card`` across that
 many cards instead, rank i on card i over NCCL (``dp4_nccl``), no ``ok``
-line either.
+line either.  The sixth runs only step 13's ``sp2_shared_card`` and its
+kernel rows, the seventh that phase on a (N/2, 2) mesh across N cards
+over NCCL (``sp4_nccl``); neither prints an ``ok`` line.
 
 1. Builds the hand-written CUDA kernels from ``dsmnet_tpu_torch/csrc`` and
    prints the card, the versions and the build time.
@@ -130,12 +134,31 @@ line either.
    against ``conv2d_same`` on the whole tensor, through A and E (path
    ``dp2_halo``).  Beside it, whether gloo's send/recv take a CUDA tensor
    (``gloo_p2p_cuda``, two more processes).
-13. The script's command time, one ``{"kernels": [...]}`` line (launches
+13. Spatial sharding (``sp2_shared_card``): two spawned ranks on the one
+   card over gloo, a (1, 2) mesh, H split into a band of rows per rank
+   (the towers run whole on both; the halo rows cross the host under
+   gloo, the phase's transport): (a) full-width PSMNet float32 on one
+   pair, its loss and summed gradients against the one-process float32
+   step's, within DP2_GRAD_FACTOR x that path's own error against
+   float64; (b) SP2_STEPS bf16 PSMNet steps at TRAIN_BATCH pairs, the same
+   on both ranks: every rank-step's launches equal the ``sp2_train`` rows
+   (A and E at the train shapes, B-D, F, G and J at the band shapes, each
+   checked against its plain version in 2.), the loss falls; the median
+   rank-step ms, the device ms of a profiled step, under its
+   ``halo_exchange`` records (the transport) and its ``halo_pad`` records
+   (joining the halo rows to the bands, the adjoint's crops and sums),
+   its 25 longest kernels, the device ms of the whole-image tower's
+   forward and backward on both ranks at once and on each rank alone, the
+   exchanges a step and the peak memory a rank beside
+   ``train_bf16``'s; (c) SP2_GCNET_STEPS bf16 GCNet steps at
+   batch 1, launches against ``sp2_gcnet`` (H, and B and F at 128 -> 128,
+   at band shapes).
+14. The script's command time, one ``{"kernels": [...]}`` line (launches
    and times on each kernel's first path, "primary": the train step for
    A-G and J, GCNet's request for H, DispNetC's for I, iResNet's step for
    I's VJP; and per path), the card's
    name and power limit, and last the ``{"ok": true, ...}`` line.  Every
-   printed row of 12. carries the card's name and power limit.
+   printed row of 12. and 13. carries the card's name and power limit.
 
 Any failed check raises: the script exits non-zero and prints no result.
 It exits non-zero at once when CUDA is not available.
@@ -304,6 +327,11 @@ TRAINER_SELFSUP_ARGS = ["--net", "dispnetcorr", "--loss_name", "Cap_ds-mask", "-
 DP2_RANKS, DP2_STEPS, DP2_GRAD_FACTOR = 2, 6, GRAD_F32_FACTOR
 DP2_HALO_SHAPE = (2, 96, 192, 32)
 DP2_DEVICE = "cuda:0"  # both ranks' card
+# spatial sharding on the shared card (sp2_shared_card): H split over the
+# two ranks of a (1, 2) mesh, PSMNet's bf16 steps at TRAIN_BATCH on the same
+# pairs on both ranks, GCNet's at batch 1; the f32 check's summed gradients
+# as dp2's (a)
+SP2_RANKS, SP2_STEPS, SP2_GCNET_STEPS = 2, 4, 2
 # a collective waits this long for a rank before it fails
 DP_TIMEOUT_S = 300
 
@@ -775,8 +803,51 @@ def kernel_specs():
                     (maps(1, 4, 50, 64), maps(1, 4, 50, 64), 24, True),
                     (maps(2, 3, 37, 64), maps(2, 3, 37, 64), 13, False)]),
     ]
+    # spatial sharding (sp2_train: a rank's bf16 PSMNet step at TRAIN_BATCH,
+    # sp2_gcnet: its GCNet step at batch 1, H over SP2_RANKS ranks): the
+    # towers run whole, so A and E take the train paths' shapes; a 3-D op
+    # runs on its band padded by its halo rows, ``e`` of them: 2 for a
+    # stride-1 conv (1, 1) and a stride-2 conv (2, 0), 1 for a deconv's
+    # input (0, 1) and a stride-2 conv's output before its first row is
+    # dropped; the stem's tap maps on the features' band + 2 rows; H on the
+    # band of GCNet's features
+    R = SP2_RANKS
+    sb = lambda lvl, c, e: (B, D4 >> lvl, (H4 >> lvl) // R + e, W4 >> lvl, c)
+    gb = lambda lvl, c, e: (Bg, D2 >> lvl, (H2 >> lvl) // R + e, W2 >> lvl, c)
+    band_paths = {
+        "conv3d_k3": {
+            "sp2_train": [(sb(0, 32, 2), k3(32, 32), 12), (sb(1, 64, 2), k3(64, 64), 6),
+                          (sb(2, 64, 2), k3(64, 64), 6)],
+            "sp2_gcnet": [(gb(0, 64, 2), k3(64, 32), 1), (gb(0, 32, 2), k3(32, 32), 2),
+                          (gb(0, 32, 2), k3(32, 64), 1), (gb(1, 64, 2), k3(64, 64), 4),
+                          (gb(2, 64, 2), k3(64, 64), 4), (gb(3, 64, 2), k3(64, 64), 4),
+                          (gb(4, 128, 2), k3(128, 128), 4)]},
+        "conv3d_k3s2": {
+            "sp2_train": [(sb(0, 32, 2), k3(32, 64), 6), (sb(1, 64, 2), k3(64, 64), 3)],
+            "sp2_gcnet": [(gb(0, 64, 2), k3(64, 64), 1), (gb(1, 64, 2), k3(64, 64), 1),
+                          (gb(2, 64, 2), k3(64, 64), 1), (gb(0, 32, 2), k3(32, 64), 1)]},
+        "deconv3d_k3s2": {"sp2_train": [(sb(1, 64, 1), k3(32, 64), 6)],
+                          "sp2_gcnet": [(gb(1, 64, 1), k3(32, 64), 1)]},
+        "conv3d_dk_k3": {
+            "sp2_train": [(sb(0, 32, 2), sb(0, 32, 2), 6), (sb(1, 64, 2), sb(1, 64, 2), 3),
+                          (sb(2, 64, 2), sb(2, 64, 2), 3)],
+            "sp2_gcnet": [(gb(0, 64, 2), gb(0, 32, 2), 1), (gb(0, 32, 2), gb(0, 32, 2), 1),
+                          (gb(1, 64, 2), gb(1, 64, 2), 2), (gb(2, 64, 2), gb(2, 64, 2), 2),
+                          (gb(3, 64, 2), gb(3, 64, 2), 2), (gb(4, 128, 2), gb(4, 128, 2), 2)]},
+        "conv3d_dk_k3s2": {
+            "sp2_train": [(sb(0, 32, 2), sb(1, 64, 1), 6), (sb(1, 64, 2), sb(2, 64, 1), 3)],
+            "sp2_gcnet": [(gb(0, 64, 2), gb(1, 64, 1), 1), (gb(1, 64, 2), gb(2, 64, 1), 1),
+                          (gb(2, 64, 2), gb(3, 64, 1), 1), (gb(0, 32, 2), gb(1, 64, 1), 1)]},
+        "fused_costvol": {"sp2_train": [(maps(B, H4 // R + 2, W4), maps(B, H4 // R + 2, W4), 1,
+                                         D4, True)]},
+        "cost_volume": {"sp2_gcnet": [((Bg, H2 // R, W2, 32), (Bg, H2 // R, W2, 32), 1, D2,
+                                       False)]},
+    }
     for spec in specs:
         paths = spec["paths"]
+        if spec["name"] in ("conv2d_k3", "conv2d_dk_k3"):  # the towers, whole
+            paths["sp2_train"], paths["sp2_gcnet"] = paths["train"], paths["train_gcnet"]
+        paths.update(band_paths.get(spec["name"], {}))
         # PSMNet without the fused stem: PSMNet's request, the volume as
         # PSMNet-basic builds it, and dres0_0 (64 -> 32) on B
         if spec["name"] in ("conv2d_k3", "conv3d_k3s2", "deconv3d_k3s2"):
@@ -1345,6 +1416,27 @@ def serve_model(name: str, dev, n_requests: int) -> dict:
     return counts[-1]
 
 
+def kernel_table(prof) -> list:
+    """(name, device ms, count) of a profile's kernels and copies, the
+    longest first."""
+    kernels = []
+    for e in prof.key_averages():
+        # a user-annotated range (the optimizer's step) is mirrored on the
+        # device timeline and would count the kernels inside it twice
+        if e.device_type != torch.autograd.DeviceType.CUDA or getattr(
+                e, "is_user_annotation", False):
+            continue
+        us = getattr(e, "self_device_time_total", None)
+        us = e.self_cuda_time_total if us is None else us
+        kernels.append((e.key[:80], us / 1e3, e.count))
+    return sorted(kernels, key=lambda r: -r[1])
+
+
+def device_ms(prof) -> float:
+    """The device ms of a profile's kernels and copies."""
+    return sum(ms for _, ms, _ in kernel_table(prof))
+
+
 def under(prof, name: str) -> dict:
     """The device ms and kernel launches under each host-side event of a
     profile whose name holds ``name`` (outermost ones only), summed over
@@ -1387,17 +1479,7 @@ def profile(tag: str, fn, top: int = 25) -> None:
         fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
-    kernels = []
-    for e in prof.key_averages():
-        # a user-annotated range (the optimizer's step) is mirrored on the
-        # device timeline and would count the kernels inside it twice
-        if e.device_type != torch.autograd.DeviceType.CUDA or getattr(
-                e, "is_user_annotation", False):
-            continue
-        us = getattr(e, "self_device_time_total", None)
-        us = e.self_cuda_time_total if us is None else us
-        kernels.append((e.key[:80], us / 1e3, e.count))
-    kernels.sort(key=lambda r: -r[1])
+    kernels = kernel_table(prof)
     device_ms = sum(ms for _, ms, _ in kernels)
     ported_ms = sum(ms for name, ms, _ in kernels if any(
         s in name for s in ("conv_k3_kernel", "s1_fwd_kernel", "s1_fwd_split_kernel",
@@ -1535,6 +1617,9 @@ def check_gradients(dev, name: str = "psmnet", h: int = H, w: int = W,
         raise RuntimeError(f"{name}: {len(bad)} parameter gradients outside tolerance: {bad}")
 
 
+TRAIN_ROWS = {}  # path -> the row run_training printed for it
+
+
 def run_training(dev, name: str = "psmnet") -> dict:
     """The supervised train step of ``name`` (TRAIN_RUNS: path, batch,
     steps, Adam's lr), bf16, at H x W and maxdisparity MAXDISP, on one
@@ -1569,11 +1654,12 @@ def run_training(dev, name: str = "psmnet") -> dict:
         if name in ("psmnet", "gcnet", "dispnetcorr", "iresnet"):
             profile(f"{path}_profile", lambda: step(state, batch, lr, weights))
     med = statistics.median(step_ms[1:])  # the first step also warms the allocator
-    emit({f"{path}_bf16": {
+    TRAIN_ROWS[path] = {
         "net": name, "batch": batch_n, "crop": [H, W], "maxdisparity": MAXDISP, "steps": steps,
         "lr": lr, "loss": losses, "last_metrics": metrics, "step_ms": step_ms,
         "median_step_ms": med, "frames_per_s": batch_n * 1e3 / med, "peak_mem_gb": peak,
-        "launches_per_step": counts[-1], "expected_launches_per_step": expected}})
+        "launches_per_step": counts[-1], "expected_launches_per_step": expected}
+    emit({f"{path}_bf16": TRAIN_ROWS[path]})
     if any(c != expected for c in counts):
         raise RuntimeError(f"{name} train-step launches {counts}, expected {expected} per step")
     if not all(math.isfinite(v) for v in losses) or not losses[-1] < losses[0]:
@@ -2112,12 +2198,9 @@ def _dp2_rank(rank: int, ranks: int, port: int, backend: str, queue) -> None:
                 t0 = time.perf_counter()
                 step(state, batch, TRAIN_LR, weights)["loss"].item()
                 wall = (time.perf_counter() - t0) * 1e3
-        device_ms = sum(e.self_device_time_total for e in prof.key_averages()
-                        if e.device_type == torch.autograd.DeviceType.CUDA
-                        and not getattr(e, "is_user_annotation", False)) / 1e3
         allreduce = under(prof, "grad_allreduce")
         out["b"] = {"losses": losses, "step_ms": step_ms, "counts": counts, "peak_mem_gb": peak,
-                    "profiled_wall_ms": wall, "profiled_device_ms": device_ms,
+                    "profiled_wall_ms": wall, "profiled_device_ms": device_ms(prof),
                     "grad_allreduce": {k: allreduce[k] for k in ("nodes", "device_ms",
                                                                  "launches")},
                     "grad_elements": sum(p.numel() for p in state.model.parameters())}
@@ -2156,27 +2239,16 @@ def halo_inputs(dev):
     return x.to(dev), k.to(dev), cot.to(dev)
 
 
-def run_data_parallel(dev, card: str, ranks: int = DP2_RANKS, backend: str = "gloo") -> dict:
-    """``dp2_shared_card`` (see the module's step 12; gloo, every rank on
-    DP2_DEVICE), or with ``backend="nccl"`` ``dp<ranks>_nccl``, rank i on card
-    i: the one-process references first (on ``dev``), then the ranks, then
-    the checks.  Returns the launches of a rank's bf16 step (``dp2_train``)
-    and of its halo convolution (``dp2_halo``)."""
+def one_process_grads(dev, n_pairs: int) -> dict:
+    """The one-process references of a parallel phase's float32 check: the
+    loss and every parameter's gradient of full-width PSMNet on the first
+    ``n_pairs`` pairs of ``train_batch`` through the kernels (float32), and
+    the same on the float64 plain path."""
     from dsmnet_tpu_torch import config
     from dsmnet_tpu_torch.losses import supervised_pyramid_loss
-    from dsmnet_tpu_torch.ops import _build
-    from dsmnet_tpu_torch.ops.conv2d import conv2d_same
 
-    probe = None
-    if backend == "gloo":  # gloo's send/recv of a CUDA tensor, in two processes of their own
-        port = free_port()
-        probe = dict(zip(("results", "exit_codes"),
-                         _spawn(_gloo_p2p_probe, 2, lambda r: (port,), 120)))
-
-    # (a)'s references: the one-process float32 step's loss and gradients on
-    # every rank's pair through the kernels, the same on the float64 plain path
     model = seeded_model(dev).train()
-    batch, weights = train_batch(ranks, dev), loss_weights(model)
+    batch, weights = train_batch(n_pairs, dev), loss_weights(model)
 
     def grads(m, b):
         m.zero_grad(set_to_none=True)
@@ -2189,8 +2261,62 @@ def run_data_parallel(dev, card: str, ranks: int = DP2_RANKS, backend: str = "gl
     with config.implementation("plain"):
         model64 = copy.deepcopy(model).double()
         loss_64, g_64 = grads(model64, batch.double())
-    zero = zero_gradient_params(model)
+    out = {"loss_1": loss_1, "g_1": g_1, "loss_64": loss_64, "g_64": g_64,
+           "zero": zero_gradient_params(model)}
     del model, model64, batch
+    torch.cuda.empty_cache()
+    return out
+
+
+def check_summed_grads(ranks_a: list, refs: dict) -> tuple[dict, bool]:
+    """Each rank's float32 loss and summed gradients (``ranks_a``: per rank
+    {"loss", "grads"}) against the one process's (``one_process_grads``):
+    each parameter within DP2_GRAD_FACTOR x the one process's own error
+    against float64 (+ the floor of check_gradients), the loss likewise,
+    every rank the same bits.  Returns (the printed row, whether it passed)."""
+    g_1, g_64, zero = refs["g_1"], refs["g_64"], refs["zero"]
+    loss_1, loss_64 = refs["loss_1"], refs["loss_64"]
+    scale = {n: (g_64[n.replace(".bias", ".kernel")] if n in zero else g_64[n]).norm()
+             for n in g_64}
+    rel = lambda a, b, n: ((a.double() - b).norm() / scale[n].clamp(min=1e-300)).item()
+    plain = {n: rel(g_1[n], g_64[n], n) for n in g_64}
+    floor = GRAD_F32_FLOOR_SHARE * statistics.median(plain.values())
+    rows = {n: (rel(ranks_a[0]["grads"][n], g_1[n], n), plain[n]) for n in g_64}
+    bad = {n: v for n, v in rows.items() if not v[0] <= DP2_GRAD_FACTOR * v[1] + floor}
+    ranks_equal = all(torch.equal(ranks_a[0]["grads"][n], o["grads"][n])
+                      for o in ranks_a[1:] for n in g_64)
+    loss_err, loss_tol = abs(ranks_a[0]["loss"] - loss_1), DP2_GRAD_FACTOR * abs(
+        loss_1 - loss_64) + 1e-6 * abs(loss_64)
+    row = {
+        "loss": {"ranks": [o["loss"] for o in ranks_a], "one_process_f32": loss_1,
+                 "f64": loss_64, "abs_err": loss_err, "tolerance": loss_tol},
+        "params": len(rows), "ranks_same_bits": ranks_equal,
+        "max_rel_err_vs_one_process": max(v[0] for v in rows.values()),
+        "median_rel_err_vs_one_process": statistics.median(v[0] for v in rows.values()),
+        "median_rel_err_one_process_vs_f64": statistics.median(plain.values()),
+        "tightest": sorted(((n, v[0] / (DP2_GRAD_FACTOR * v[1] + floor)) for n, v in
+                            rows.items()), key=lambda kv: -kv[1])[:5],
+        "outside_tol": bad,
+        "tolerance": f"per parameter |g_ranks - g_1| / |g64| <= {DP2_GRAD_FACTOR} x "
+                     f"|g_1 - g64| / |g64| + {GRAD_F32_FLOOR_SHARE} x median = {floor:.3g}"}
+    return row, not bad and loss_err <= loss_tol and ranks_equal
+
+
+def run_data_parallel(dev, card: str, ranks: int = DP2_RANKS, backend: str = "gloo") -> dict:
+    """``dp2_shared_card`` (see the module's step 12; gloo, every rank on
+    DP2_DEVICE), or with ``backend="nccl"`` ``dp<ranks>_nccl``, rank i on card
+    i: the one-process references first (on ``dev``), then the ranks, then
+    the checks.  Returns the launches of a rank's bf16 step (``dp2_train``)
+    and of its halo convolution (``dp2_halo``)."""
+    from dsmnet_tpu_torch.ops.conv2d import conv2d_same
+
+    probe = None
+    if backend == "gloo":  # gloo's send/recv of a CUDA tensor, in two processes of their own
+        port = free_port()
+        probe = dict(zip(("results", "exit_codes"),
+                         _spawn(_gloo_p2p_probe, 2, lambda r: (port,), 120)))
+
+    refs = one_process_grads(dev, ranks)
     # (c)'s reference: conv2d_same on the whole tensor, forward and backward
     x, k, cot = halo_inputs(dev)
     x.requires_grad_(True)
@@ -2213,17 +2339,7 @@ def run_data_parallel(dev, card: str, ranks: int = DP2_RANKS, backend: str = "gl
         o["c"].update({k: torch.from_numpy(o["c"][k]) for k in ("y", "dx", "dk")})
 
     # (a): each rank's global loss and summed gradients against the one process's
-    scale = {n: (g_64[n.replace(".bias", ".kernel")] if n in zero else g_64[n]).norm()
-             for n in g_64}
-    rel = lambda a, b, n: ((a.double() - b).norm() / scale[n].clamp(min=1e-300)).item()
-    plain = {n: rel(g_1[n], g_64[n], n) for n in g_64}
-    floor = GRAD_F32_FLOOR_SHARE * statistics.median(plain.values())
-    rows = {n: (rel(r[0]["a"]["grads"][n], g_1[n], n), plain[n]) for n in g_64}
-    bad = {n: v for n, v in rows.items() if not v[0] <= DP2_GRAD_FACTOR * v[1] + floor}
-    ranks_equal = all(torch.equal(r[0]["a"]["grads"][n], o["a"]["grads"][n])
-                      for o in r[1:] for n in g_64)
-    loss_err, loss_tol = abs(r[0]["a"]["loss"] - loss_1), DP2_GRAD_FACTOR * abs(
-        loss_1 - loss_64) + 1e-6 * abs(loss_64)
+    a_row, a_ok = check_summed_grads([o["a"] for o in r], refs)
     # (b)
     bs = [o["b"] for o in r]
     expected = TRAIN_LAUNCHES["psmnet"]
@@ -2243,18 +2359,7 @@ def run_data_parallel(dev, card: str, ranks: int = DP2_RANKS, backend: str = "gl
                 "times measure gloo on one shared card, not a multi-GPU node" if shared else
                 "one rank per card over NCCL",
         "gloo_p2p_cuda": probe,
-        "a_f32_one_sample_per_rank": {
-            "loss": {"ranks": [o["a"]["loss"] for o in r], "one_process_f32": loss_1,
-                     "f64": loss_64, "abs_err": loss_err, "tolerance": loss_tol},
-            "params": len(rows), "ranks_same_bits": ranks_equal,
-            "max_rel_err_vs_one_process": max(v[0] for v in rows.values()),
-            "median_rel_err_vs_one_process": statistics.median(v[0] for v in rows.values()),
-            "median_rel_err_one_process_vs_f64": statistics.median(plain.values()),
-            "tightest": sorted(((n, v[0] / (DP2_GRAD_FACTOR * v[1] + floor)) for n, v in
-                                rows.items()), key=lambda kv: -kv[1])[:5],
-            "outside_tol": bad,
-            "tolerance": f"per parameter |g_dp - g_1| / |g64| <= {DP2_GRAD_FACTOR} x "
-                         f"|g_1 - g64| / |g64| + {GRAD_F32_FLOOR_SHARE} x median = {floor:.3g}"},
+        "a_f32_one_sample_per_rank": a_row,
         "b_bf16_steps": {
             "batch_per_rank": TRAIN_BATCH, "global_batch": ranks * TRAIN_BATCH,
             "steps": DP2_STEPS, "losses": bs[0]["losses"],
@@ -2271,9 +2376,8 @@ def run_data_parallel(dev, card: str, ranks: int = DP2_RANKS, backend: str = "gl
             "same_bits_out": torch.equal(y, y_full),
             "tolerance": f"out, dx: |err| <= {F32_ATOL} + {F32_RTOL} |ref|; dk: 1e-5 of max|dk|",
             "launches": [o["c"]["launches"] for o in r], "expected_launches": halo_expected}}})
-    if bad or loss_err > loss_tol or not ranks_equal:
-        raise RuntimeError(f"dp2 (a): loss err {loss_err} (tol {loss_tol}), ranks equal "
-                           f"{ranks_equal}, gradients outside tolerance {bad}")
+    if not a_ok:
+        raise RuntimeError(f"dp2 (a): {a_row}")
     if any(c != expected for b in bs for c in b["counts"]):
         raise RuntimeError(f"dp2 (b) launches {[b['counts'] for b in bs]}, "
                            f"expected {expected}")
@@ -2287,6 +2391,208 @@ def run_data_parallel(dev, card: str, ranks: int = DP2_RANKS, backend: str = "gl
         raise RuntimeError(f"dp2 (c): out {y_err}, dx {dx_err}, dk {dk_err} over tolerance, "
                            f"launches {[o['c']['launches'] for o in r]}")
     return {"dp2_train": bs[0]["counts"][-1], "dp2_halo": r[0]["c"]["launches"]}
+
+
+def _sp2_rank(rank: int, ranks: int, port: int, backend: str, queue) -> None:
+    """One of ``ranks`` ranks of the spatial phase, on a (ranks / 2, 2) mesh
+    (H split over ``model``): on DP2_DEVICE over gloo (``sp2_shared_card``),
+    or on card ``rank`` over NCCL (``--sp-cards``): (a) a float32 PSMNet
+    step on its data index's pair, its band of rows; (b) SP2_STEPS bf16
+    PSMNet steps on its data index's TRAIN_BATCH pairs and one profiled
+    step; (c) SP2_GCNET_STEPS bf16 GCNet steps at batch 1; everything to
+    the parent."""
+    import datetime
+    import traceback
+
+    from torch.profiler import ProfilerActivity, profile as torch_profile
+
+    try:
+        from dsmnet_tpu_torch.models.layers import compute_dtype, siamese
+        from dsmnet_tpu_torch.ops import _build
+        from dsmnet_tpu_torch.parallel import (
+            ShardingContext, activate, context, init_distributed, make_mesh, replicate,
+            shard_batch)
+        from dsmnet_tpu_torch.train import create_train_state, make_supervised_train_step
+
+        os.environ["LOCAL_RANK"] = str(rank if backend == "nccl" else 0)
+        dev = torch.device("cuda", rank) if backend == "nccl" else torch.device(DP2_DEVICE)
+        torch.cuda.set_device(dev)
+        torch.backends.cudnn.allow_tf32 = False
+        torch.backends.cuda.matmul.allow_tf32 = False
+        init_distributed(f"localhost:{port}", ranks, rank, backend=backend,
+                         timeout=datetime.timedelta(seconds=DP_TIMEOUT_S))
+        _build.lib()  # the parent built it
+        data = ranks // 2
+        mesh = make_mesh(data=data, model=2)
+        ctx = ShardingContext(mesh, "data", "model")
+        out = {"rank": rank}
+
+        # (a) float32, one pair a data index, H banded
+        state, opt = create_train_state(seeded_model(dev), device=dev)
+        replicate(state, mesh)
+        step = make_supervised_train_step(state.model, opt)
+        weights = loss_weights(state.model)
+        with activate(ctx):
+            m = step(state, shard_batch(train_batch(data, dev), mesh), 0.0, weights)
+        out["a"] = {"loss": m["loss"].item(), "grads": {
+            n: p.grad.detach().float().cpu().numpy() for n, p in
+            state.model.named_parameters()}}
+        del state, opt, step
+        torch.cuda.empty_cache()
+
+        def tower_ms(model, batch):
+            with torch_profile(activities=[ProfilerActivity.CUDA]) as prof:
+                feats = siamese(model.feature_extraction, batch[..., :3], batch[..., 3:6])
+                torch.autograd.backward(feats, [torch.ones_like(f) for f in feats])
+                torch.cuda.synchronize()
+            return device_ms(prof)
+
+        def bf16_steps(name, n, steps, lr, prof_step):
+            state, opt = create_train_state(seeded_model(dev, name), device=dev)
+            replicate(state, mesh)
+            step = make_supervised_train_step(state.model, opt)
+            batch = shard_batch(train_batch(data * n, dev), mesh)
+            weights = loss_weights(state.model)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            row = {"losses": [], "step_ms": [], "counts": [], "exchanges": []}
+            with activate(ctx), compute_dtype(torch.bfloat16):
+                for _ in range(steps):
+                    _build.reset_launches()
+                    before = context.COLLECTIVES.get("halo_exchange", 0)
+                    t0 = time.perf_counter()
+                    loss = step(state, batch, lr, weights)["loss"].item()
+                    row["step_ms"].append((time.perf_counter() - t0) * 1e3)
+                    row["counts"].append({k: v for k, v in _build.LAUNCHES.items() if v})
+                    row["exchanges"].append(context.COLLECTIVES["halo_exchange"] - before)
+                    row["losses"].append(loss)
+                row["peak_mem_gb"] = torch.cuda.max_memory_allocated() / 1e9
+                if prof_step:
+                    with torch_profile(activities=[ProfilerActivity.CPU,
+                                                   ProfilerActivity.CUDA]) as prof:
+                        t0 = time.perf_counter()
+                        step(state, batch, lr, weights)["loss"].item()
+                        row["profiled_wall_ms"] = (time.perf_counter() - t0) * 1e3
+                    table = kernel_table(prof)
+                    row["profiled_device_ms"] = sum(ms for _, ms, _ in table)
+                    # NCCL's kernels wait for the peers: the rank's own work without them
+                    row["profiled_device_ms_without_nccl"] = sum(
+                        ms for name, ms, _ in table if "nccl" not in name.lower())
+                    row["top_kernels_ms_count"] = table[:25]
+                    for key in ("halo_exchange", "halo_pad", "grad_allreduce"):
+                        spans = under(prof, key)
+                        row[key] = {k: spans[k] for k in ("nodes", "device_ms", "launches")}
+                    del prof
+                    # the whole-image tower's share: its forward and backward,
+                    # on every rank at once as in the step, then on each
+                    # rank alone (outside the context: no peer to reduce with)
+                    row["tower_device_ms"] = tower_ms(state.model, batch)
+                    for r in range(ranks):
+                        torch.distributed.barrier()
+                        if r == rank:
+                            with activate(None):
+                                row["tower_device_ms_alone"] = tower_ms(state.model, batch)
+                    torch.distributed.barrier()
+            del state, opt, step, batch
+            torch.cuda.empty_cache()
+            return row
+
+        # (b) PSMNet, bf16, TRAIN_BATCH pairs a data index; (c) GCNet at batch 1
+        out["b"] = bf16_steps("psmnet", TRAIN_BATCH, SP2_STEPS, TRAIN_LR, True)
+        out["c"] = bf16_steps("gcnet", TRAIN_RUNS["gcnet"][1], SP2_GCNET_STEPS,
+                              TRAIN_RUNS["gcnet"][3], False)
+        queue.put(out)
+    except BaseException:
+        queue.put({"rank": rank, "error": traceback.format_exc()})
+        raise
+    finally:
+        if torch.distributed.is_initialized():
+            torch.distributed.destroy_process_group()
+
+
+def run_spatial(dev, card: str, ranks: int = SP2_RANKS, backend: str = "gloo") -> dict:
+    """``sp2_shared_card`` (the module's step 13: two ranks on DP2_DEVICE
+    over gloo, a (1, 2) mesh, H banded over them), or with
+    ``backend="nccl"`` ``sp<ranks>_nccl``, rank i on card i, a (ranks / 2,
+    2) mesh: the one-process references first (on ``dev``), then the
+    ranks, then the checks.  Returns the launches of a rank's bf16 PSMNet
+    step (``sp2_train``) and GCNet step (``sp2_gcnet``)."""
+    data = ranks // 2
+    refs = one_process_grads(dev, data)
+    port = free_port()
+    got, codes = _spawn(_sp2_rank, ranks, lambda r: (ranks, port, backend), DP_TIMEOUT_S + 300)
+    errors = [o["error"] for o in got if "error" in o]
+    if errors or len(got) != ranks or any(codes):
+        raise RuntimeError(f"sp ranks: exit codes {codes}, {len(got)} results, "
+                           f"errors {errors}")
+    r = sorted(got, key=lambda o: o["rank"])
+    for o in r:
+        o["a"]["grads"] = {n: torch.from_numpy(g) for n, g in o["a"]["grads"].items()}
+    a_row, a_ok = check_summed_grads([o["a"] for o in r], refs)
+    bs, cs = [o["b"] for o in r], [o["c"] for o in r]
+    train, train_gcnet = TRAIN_ROWS.get("train", {}), TRAIN_ROWS.get("train_gcnet", {})
+    expected = {"sp2_train": kernel_launches("sp2_train"), "sp2_gcnet": kernel_launches(
+        "sp2_gcnet")}
+    med = lambda row: statistics.median(row["step_ms"][1:])
+    shared = backend == "gloo"
+    emit({"sp2_shared_card" if shared else f"sp{ranks}_nccl": {
+        "card": card, "ranks": ranks, "mesh": [data, 2], "backend": backend,
+        "device": f"{DP2_DEVICE}, every rank" if shared else "cuda:<rank>",
+        "halo_transport": "gloo point-to-point through host memory: each exchange copies its "
+                          "rows from the card, sends them and copies what it receives back"
+                          if shared else "NCCL point-to-point, card to card",
+        "note": "both ranks share one card and its compute: a rank-step's time is not a "
+                "2-card step's" if shared else "one rank per card",
+        "a_f32_psmnet_one_pair_per_data_index": a_row,
+        "b_bf16_psmnet": {
+            "batch_per_data_index": TRAIN_BATCH, "steps": SP2_STEPS, "losses": bs[0]["losses"],
+            "step_ms_per_rank": [b["step_ms"] for b in bs],
+            "median_step_ms_per_rank": [med(b) for b in bs],
+            "train_bf16_median_step_ms": train.get("median_step_ms"),
+            "peak_mem_gb_per_rank": [b["peak_mem_gb"] for b in bs],
+            "train_bf16_peak_mem_gb": train.get("peak_mem_gb"),
+            "halo_exchanges_per_step": bs[0]["exchanges"][-1],
+            "profiled_step": {k: [b[k] for b in bs] for k in (
+                "profiled_wall_ms", "profiled_device_ms", "profiled_device_ms_without_nccl",
+                "tower_device_ms",
+                "tower_device_ms_alone", "halo_exchange", "halo_pad", "grad_allreduce",
+                "top_kernels_ms_count")},
+            "launches_per_step": bs[0]["counts"][-1],
+            "expected_launches_per_step": expected["sp2_train"]},
+        "c_bf16_gcnet": {
+            "batch_per_data_index": TRAIN_RUNS["gcnet"][1], "steps": SP2_GCNET_STEPS,
+            "losses": cs[0]["losses"], "step_ms_per_rank": [c["step_ms"] for c in cs],
+            "train_gcnet_bf16_median_step_ms": train_gcnet.get("median_step_ms"),
+            "peak_mem_gb_per_rank": [c["peak_mem_gb"] for c in cs],
+            "train_gcnet_bf16_peak_mem_gb": train_gcnet.get("peak_mem_gb"),
+            "halo_exchanges_per_step": cs[0]["exchanges"][-1],
+            "launches_per_step": cs[0]["counts"][-1],
+            "expected_launches_per_step": expected["sp2_gcnet"]}}})
+    if not a_ok:
+        raise RuntimeError(f"sp (a): {a_row}")
+    for path, rows in (("sp2_train", bs), ("sp2_gcnet", cs)):
+        if any(c != expected[path] for row in rows for c in row["counts"]):
+            raise RuntimeError(f"sp {path} launches {[row['counts'] for row in rows]}, "
+                               f"expected {expected[path]}")
+        losses = rows[0]["losses"]
+        if any(row["losses"] != losses for row in rows) \
+                or not all(math.isfinite(v) for v in losses):
+            raise RuntimeError(f"sp {path}: the global loss differs between the ranks or is "
+                               f"not finite: {[row['losses'] for row in rows]}")
+    if not bs[0]["losses"][-1] < bs[0]["losses"][0]:
+        raise RuntimeError(f"sp2_train: the loss did not fall: {bs[0]['losses']}")
+    return {"sp2_train": bs[0]["counts"][-1], "sp2_gcnet": cs[0]["counts"][-1]}
+
+
+def kernel_launches(path: str) -> dict:
+    """The launches per call of ``path`` that kernel_specs' rows add up to,
+    by kernel."""
+    out = {}
+    for spec in kernel_specs():
+        n = sum(row[2] for row in spec["paths"].get(path, []))
+        if n:
+            out[spec["name"]] = n
+    return out
 
 
 def ptxas_report(log: str) -> dict:
@@ -2310,8 +2616,10 @@ def main(argv: list[str] | None = None) -> int:
     (edges and every path's rows), ``--profile-train N1,N2`` profiles one
     train step of each net, ``--trainer-workers 1,4`` runs one trainer
     epoch for each loader worker count, ``--data-parallel`` trainer_bf16
-    and the data-parallel phases and ``--dp-cards N`` the data-parallel
-    phase over N cards, and with any of them the run stops there
+    and the data-parallel phases, ``--dp-cards N`` the data-parallel
+    phase over N cards, ``--spatial`` the spatial phase and its kernel rows
+    and ``--sp-cards N`` the spatial phase over N cards, and with any of
+    them the run stops there
     (no ``ok`` line): the pieces that can also be run from another commit's
     tree, beside which this file is copied."""
     import argparse
@@ -2325,6 +2633,10 @@ def main(argv: list[str] | None = None) -> int:
                     help="only trainer_bf16 and the data-parallel phases")
     ap.add_argument("--dp-cards", default=0, type=int,
                     help="only the data-parallel phase over this many cards, NCCL")
+    ap.add_argument("--spatial", action="store_true",
+                    help="only the spatial phase (sp2_shared_card) and its kernel rows")
+    ap.add_argument("--sp-cards", default=0, type=int,
+                    help="only the spatial phase over this many cards, NCCL, a (N/2, 2) mesh")
     opts = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -2351,10 +2663,25 @@ def main(argv: list[str] | None = None) -> int:
     gen = torch.Generator(device=dev).manual_seed(0)
 
     specs = kernel_specs()
+    for flag, n in (("--dp-cards", opts.dp_cards), ("--sp-cards", opts.sp_cards)):
+        if n and torch.cuda.device_count() < n:
+            raise RuntimeError(f"{flag} {n}: {torch.cuda.device_count()} cards")
     if opts.dp_cards:
-        if torch.cuda.device_count() < opts.dp_cards:
-            raise RuntimeError(f"--dp-cards {opts.dp_cards}: {torch.cuda.device_count()} cards")
         run_data_parallel(dev, smi, opts.dp_cards, "nccl")
+        emit({"script_s": time.perf_counter() - T_START})
+        return 0
+    if opts.sp_cards:
+        if opts.sp_cards % 2:
+            raise RuntimeError(f"--sp-cards {opts.sp_cards}: the mesh is (N / 2, 2)")
+        run_spatial(dev, smi, opts.sp_cards, "nccl")
+        emit({"script_s": time.perf_counter() - T_START})
+        return 0
+    if opts.spatial:
+        launches = run_spatial(dev, smi)
+        for s in specs:
+            for path in launches:
+                for a, b, n, *args in s["paths"].get(path, []):
+                    check_kernel(s, a, b, n, path, dev, gen, *args)
         emit({"script_s": time.perf_counter() - T_START})
         return 0
     if opts.data_parallel:
@@ -2401,6 +2728,7 @@ def main(argv: list[str] | None = None) -> int:
     launches["trainer_selfsup"], _ = run_trainer(dev, "trainer_selfsup_bf16")
     launches["dp_cli"] = run_dp_cli(trainer_row, smi)
     launches.update(run_data_parallel(dev, smi))
+    launches.update(run_spatial(dev, smi))
     # the shapes' launches in kernel_specs must add up to what each path launched
     for s in specs:
         for path in launches:

@@ -13,22 +13,31 @@ batch above 1 (a shifted sample is narrower than the crop, and a batch
 of mixed widths raises).  ``--path_weight`` takes the port's ``.pt``, an
 ``.npz`` of flax paths or a JAX ``.msgpack``.
 
-Data parallel: one process per card, each a rank of a ``(data, model)``
+Parallel runs: one process per card, each a rank of a ``(data, model)``
 mesh (``parallel.make_mesh``), launched by torchrun on one host, or with
 ``--multihost`` by hand on each host.  ``--mesh-data`` is the data axis (0:
-every rank), and the mesh must cover every rank; ``--mesh-model`` above 1
-(spatial sharding) raises ``NotImplementedError``: it is not ported yet.
-Without ``--multihost`` ``--batchsize`` is the global batch, which every
-rank cuts from the same seeded order, decoding only its slice; with it
-every rank reads its share of the datasets (strided by rank) and
-``--batchsize`` is its own batch, so the global batch is ``P`` times it.
-The files (checkpoints, history, curves, submit's) are written by rank 0.
+every rank the model axis leaves), ``--mesh-model`` the spatial axis, and
+the mesh must cover every rank.  Above 1, ``--mesh-model`` splits H over
+its ranks: PSMNet and GCNet run their 2-D tower on the whole images and
+the cost volume, the 3-D part, the regression and the loss on a band of
+rows per rank, exchanging halo rows; a band must be a whole multiple of
+4 rows at 1/4 resolution (PSMNet) or of 16 at 1/2 (GCNet), else it
+raises ``ValueError``; the other models run whole on every model rank;
+a photometric ``--loss_name`` raises ``NotImplementedError``.  The ranks
+of one data index read the same samples.  Without ``--multihost``
+``--batchsize`` is the global batch, which every data index cuts from
+the same seeded order, decoding only its slice; with it every rank reads
+its data index's share of the datasets (strided) and ``--batchsize`` is
+its own batch, so the global batch is ``--mesh-data`` times it.  The
+files (checkpoints, history, curves, submit's) are written by rank 0.
 
 Usage:
     python -m dsmnet_tpu_torch.cli --mode train --net psmnet --dataset synthetic \
         --batchsize 4 --shift_max 0 --dtype bfloat16 --lr 1e-3 --epochs 2
     torchrun --nproc_per_node 4 -m dsmnet_tpu_torch.cli --mode train --net psmnet \
         --dataset synthetic --batchsize 16 --shift_max 0 --dtype bfloat16 --mesh-data 4
+    torchrun --nproc_per_node 2 -m dsmnet_tpu_torch.cli --mode train --net psmnet \
+        --dataset synthetic --batchsize 4 --shift_max 0 --dtype bfloat16 --mesh-model 2
     python -m dsmnet_tpu_torch.cli --mode train ... --multihost --coordinator host0:29500 \
         --num_processes 2 --process_id 0      # and --process_id 1 on the other host
     python -m dsmnet_tpu_torch.cli --mode train --net dispnetcorr --dataset synthetic \
@@ -100,7 +109,8 @@ def build_parser() -> argparse.ArgumentParser:
                    help="data-parallel mesh size (0 = every rank); the mesh must cover "
                         "every rank")
     p.add_argument("--mesh-model", default=1, type=int,
-                   help="spatial/model mesh size (above 1 not ported yet: raises)")
+                   help="spatial/model mesh size: above 1, PSMNet and GCNet split H into "
+                        "one band of rows per rank (supervised losses)")
     p.add_argument("--multihost", action="store_true",
                    help="make the process group from --coordinator (else torchrun's "
                         "environment); shard the datasets per rank, --batchsize per rank")
@@ -188,21 +198,17 @@ def deploy(args) -> np.ndarray:
 
 def _make_mesh(args):
     """The (data, model) mesh over the ranks of the process group, or None
-    for a single process.  ``--mesh-model`` above 1 raises
-    ``NotImplementedError``, a mesh that does not cover every rank
+    for a single process.  A mesh that does not cover every rank raises
     ``ValueError`` (a rank outside it would train alone on the same files:
     JAX leaves spare devices idle)."""
     from .parallel import make_mesh
 
-    if args.mesh_model > 1:
-        raise NotImplementedError(
-            f"--mesh-model {args.mesh_model}: spatial sharding is not ported yet "
-            "(ROADMAP.md, queue 1, 'Spatial sharding')")
     if dist.is_available() and dist.is_initialized():
         return make_mesh(data=args.mesh_data or None, model=args.mesh_model)
-    if args.mesh_data > 1:
-        raise ValueError(f"--mesh-data {args.mesh_data} exceeds the one rank of a single "
-                         "process: launch the ranks with torchrun or --multihost")
+    for flag, n in (("--mesh-data", args.mesh_data), ("--mesh-model", args.mesh_model)):
+        if n > 1:
+            raise ValueError(f"{flag} {n} exceeds the one rank of a single process: launch "
+                             "the ranks with torchrun or --multihost")
     return None
 
 
@@ -251,7 +257,7 @@ def _run(args):
     if mesh is not None and args.multihost and args.mode != "submit":
         for loader in (loader_train, loader_val):
             if loader is not None:
-                shard_dataset_for_host(loader.dataset)
+                shard_dataset_for_host(loader.dataset, mesh)
     cfg = TrainConfig(
         mode=args.mode, epochs=args.epochs, net=args.net,
         maxdisparity=args.maxdisparity, loss_name=args.loss_name, lr=args.lr,

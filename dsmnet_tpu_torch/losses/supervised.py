@@ -8,9 +8,13 @@ plus 0.1 * mean(clip(|dx| + |dy|, 0, 1)) over the same mask when
 indexed by *scale*: PSMNet returns scales [0, 0, 0], so all three heads
 take ``weights[0]``.
 
-Under a data-parallel sharding context (``parallel/context.py``) each
-rank's loss is its share of the loss of the global batch: the mask count
-is global, so the ranks' losses sum to it.
+Under a sharding context (``parallel/context.py``) each rank's loss is
+its share of the loss of the global batch: the mask count is global, so
+the ranks' losses sum to it.  Inside a banded section (a model that bands
+H, ``parallel.context.banded``) the maps and the ground truth are this
+rank's bands of rows, the count and the sums run over the whole mesh,
+and the smoothness term's ``diff1_dy`` reads the first row of the band
+below; the count's floor of 1 applies to the global count.
 """
 
 from __future__ import annotations
@@ -19,7 +23,7 @@ import torch
 
 from ..ops.gradients import diff1_dx, diff1_dy
 from ..ops.resize import upsample_bilinear
-from ..parallel.context import data_sum
+from ..parallel.context import data_sum, in_band
 
 __all__ = ["supervised_level_loss", "supervised_pyramid_loss"]
 
@@ -46,6 +50,9 @@ def supervised_pyramid_loss(disp_gt: torch.Tensor, disps, scales, weights,
     loss = disp_gt.new_zeros(())
     for pred, level in zip(disps, scales):
         if level > 0:
+            if in_band():
+                raise NotImplementedError("a banded model's maps are at full resolution "
+                                          "(scale 0): no banded upsample is ported")
             pred = upsample_bilinear(pred, 2 ** level)[:, :h, :w]
         loss = loss + weights[level] * supervised_level_loss(disp_gt, pred, flag_smooth)
     return loss

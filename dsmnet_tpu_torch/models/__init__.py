@@ -3,13 +3,14 @@
 Every model obeys the JAX package's contract, ``scales, disps =
 model(imL, imR, clamp=...)`` with NHWC images and ``disps[0]`` the
 full-resolution (N, H, W, 1) disparity.  Every model of the JAX zoo is
-ported.
+ported; ``GCNetLR``, the bidirectional GCNet, returns (dispL, dispR) and
+is outside the factory, as in JAX.
 """
 
 from __future__ import annotations
 
 from .dispnet import DispNet, DispNetC
-from .gcnet import GCNet
+from .gcnet import GCNet, GCNetLR
 from .iresnet import IResNet
 from .psmnet import PSMNet
 from .psmnet_basic import PSMNetBasic
@@ -35,5 +36,5 @@ def create_model(name: str, maxdisparity: int = 192, **kwargs):
     return MODELS[name](maxdisparity=maxdisparity, **kwargs)
 
 
-__all__ = ["MODELS", "create_model", "DispNet", "DispNetC", "GCNet", "IResNet", "PSMNet",
-           "PSMNetBasic"]
+__all__ = ["MODELS", "create_model", "DispNet", "DispNetC", "GCNet", "GCNetLR", "IResNet",
+           "PSMNet", "PSMNetBasic"]

@@ -22,6 +22,14 @@ the JAX folded pathway's remat (``gcnet.py:88-167``).  l37 is kept, as
 in JAX.
 
 ``forward`` returns ``([0], [disp])`` like the JAX model's ``apply``.
+
+Under a spatial sharding context (``parallel.context``) every ``model``
+rank runs the 2-D tower on the whole images; the volume and the 3-D
+hourglass run on this rank's band of the 1/2-resolution rows
+(``band_multiple`` = 16: l21, l24, l27 and l30 need whole, even bands),
+every 3-D op exchanging its halo rows, and the disparity is the band of
+the full-resolution rows.  ``GCNetLR`` (``gcnet.py:234-267``), the
+bidirectional variant outside the factory, does the same.
 """
 
 from __future__ import annotations
@@ -30,11 +38,12 @@ import torch
 import torch.nn as nn
 
 from ..ops.cost_volume import concat_cost_volume
+from ..parallel import context as sharding
 from ..parallel.context import shard_activation
 from ..ops.softargmin import soft_argmin
 from .layers import ConvBN, DeconvBN, ResStackGC, crop_add, remat, reset_parameters, siamese
 
-__all__ = ["GCNet"]
+__all__ = ["GCNet", "GCNetLR"]
 
 _F = 32
 
@@ -100,6 +109,8 @@ class _Feature3D(nn.Module):
 class GCNet(nn.Module):
     """``gcnet.py:192-231``.  Returns a single full-resolution map."""
 
+    band_multiple = 16  # rows of a band at 1/2 resolution: a multiple of 16
+
     def __init__(self, maxdisparity: int = 192, count_levels: int = 1, remat: bool = False):
         super().__init__()
         self.maxdisparity = maxdisparity
@@ -115,10 +126,43 @@ class GCNet(nn.Module):
         if imL.shape != imR.shape:
             raise ValueError(f"image shapes differ: {tuple(imL.shape)} vs {tuple(imR.shape)}")
         fL, fR = siamese(self.layer2d, imL, imR)
-        # H-sharded under a spatial mesh axis (not ported yet: the identity)
-        fL, fR = shard_activation(fL), shard_activation(fR)
         h, w = imL.shape[1], imL.shape[2]
-        disp = self.layer3d(fL, fR, self.maxdisparity // 2)[:, :h, :w, :]
+        # H-sharded under a spatial mesh axis: this rank's band from here on
+        with sharding.banded(fL.shape[1], self.band_multiple):
+            fL, fR = shard_activation(fL), shard_activation(fR)
+            disp = self.layer3d(fL, fR, self.maxdisparity // 2)[:, :h, :w, :]
         if clamp:
             disp = disp.clamp(1e-6, max(self.maxdisparity, w))
         return [0], [disp]
+
+
+class GCNetLR(nn.Module):
+    """Bidirectional GCNet (``gcnet.py:234-267``): one 2-D and one 3-D tower
+    for the left and the right disparity.  The right view's volume is the
+    left view's volume of the horizontally mirrored pair (swap + flip W),
+    run through the same hourglass and un-mirrored.  Returns ``(dispL,
+    dispR)``, each (N, H, W, 1); not in the factory, as in JAX."""
+
+    band_multiple = 16
+
+    def __init__(self, maxdisparity: int = 192):
+        super().__init__()
+        self.maxdisparity = maxdisparity
+        self.layer2d = _Feature2D()
+        self.layer3d = _Feature3D()
+
+    def reset_parameters(self, generator: torch.Generator) -> "GCNetLR":
+        """Seeded weights: kernels and biases drawn from ``generator``, BN at identity."""
+        return reset_parameters(self, generator)
+
+    def forward(self, imL: torch.Tensor, imR: torch.Tensor):
+        if imL.shape != imR.shape:
+            raise ValueError(f"image shapes differ: {tuple(imL.shape)} vs {tuple(imR.shape)}")
+        fL, fR = siamese(self.layer2d, imL, imR)
+        h, w = imL.shape[1], imL.shape[2]
+        D = self.maxdisparity // 2
+        with sharding.banded(fL.shape[1], self.band_multiple):
+            fL, fR = shard_activation(fL), shard_activation(fR)
+            dispL = self.layer3d(fL, fR, D)[:, :h, :w, :]
+            dispR = self.layer3d(fR.flip(2), fL.flip(2), D).flip(2)[:, :h, :w, :]
+        return dispL, dispR

@@ -13,6 +13,13 @@ their biases and BN normalization run in bf16 while parameters and BN
 statistics stay float32, as in the JAX package (``layers.py:97-112``).
 In train mode LeanBN backpropagates through its batch statistics without an f32 copy
 of the activation (``_Moments``).
+
+Under a spatial sharding context, inside a model's banded section
+(``parallel.context.banded``), ``ConvBN`` and ``DeconvBN`` run their 3-D
+convs on the band through the halo-exchanging wrappers of
+``parallel/halo.py``, and LeanBN's moments reduce over the whole mesh;
+outside it (the 2-D towers, which every ``model`` rank runs on the same
+whole images) over the data group only.
 """
 
 from __future__ import annotations
@@ -32,6 +39,7 @@ import torch.utils.checkpoint
 from ..ops.conv2d import conv2d_same
 from ..ops.conv3d import conv3d_s2, conv3d_same, deconv3d_k3s2
 from ..parallel import context as sharding
+from ..parallel.halo import banded_conv3d_s2, banded_conv3d_same, banded_deconv3d_k3s2
 
 __all__ = [
     "compute_dtype", "default_dtype", "conv_kernel_init", "scaled_conv_kernel_init",
@@ -74,9 +82,10 @@ def remat(fn, *args):
     """``fn(*args)`` with its activations recomputed in the backward instead
     of kept (``torch.utils.checkpoint``, non-reentrant), as flax's
     ``nn.remat``.  The recomputation runs in the compute dtype and under the
-    sharding context of the forward (the backward may run on another
-    thread) and, as the flax recomputation mutates nothing, leaves the BN
-    running statistics alone."""
+    sharding context of the forward, its banded section included (the
+    backward may run on another thread), so that it exchanges the same
+    halos and reduces over the same groups, and, as the flax recomputation
+    mutates nothing, leaves the BN running statistics alone."""
     dt, ctx = default_dtype(), sharding.current()
     return torch.utils.checkpoint.checkpoint(
         fn, *args, use_reentrant=False,
@@ -151,10 +160,10 @@ class Kernel(nn.Module):
 
 class _Moments(torch.autograd.Function):
     """(E[x], E[x^2]) over every axis but the last, accumulated in ``acc``,
-    and over the ranks of ``group`` (the data axis of a data-parallel
-    step: each rank's moments of its shard, of M elements a channel on
-    every rank, averaged in ``acc``), as XLA makes JAX's moments of a
-    sharded batch global.
+    and over the ranks of ``group`` (``context.reduce_group``: the data
+    axis, or the whole mesh for a banded tensor; each rank's moments of its
+    shard, of M elements a channel on every rank, averaged in ``acc``), as
+    XLA makes JAX's moments of a sharded batch global.
 
     The backward, dx = (g_mean + 2 x g_sq) / M, runs in x's dtype: autograd
     of ``x.mean(dtype=float32)`` would build the broadcast gradient as a
@@ -221,7 +230,7 @@ class LeanBN(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if self.training:
             mean, sq = _Moments.apply(x, torch.promote_types(x.dtype, torch.float32),
-                                      sharding.data_group())
+                                      sharding.reduce_group())
             var = sq - mean * mean
             if not _recomputing.get():
                 self._update_running(mean, var)
@@ -251,6 +260,9 @@ class ConvBN(nn.Module):
     ``conv2d_same``, stride-1 SAME undilated 3-D convs to ``conv3d_same``,
     3x3x3 stride-2 pad-1 3-D convs on even D/H/W to ``conv3d_s2``; the rest
     (strided or dilated 2-D convs, 1x1 convs) run as plain convolutions.
+    Inside a banded section a 3-D conv runs on the band through
+    ``banded_conv3d_same`` or ``banded_conv3d_s2`` (any other 3-D conv
+    raises there).
     ``padding=None`` is torch's (k-1)//2; PSMNet passes padding=dilation,
     so its 1x1 SPP branch convs pad by 1.  ``use_bias`` adds ``Conv_0.bias``
     after the conv; it defaults to False, where the JAX default is True
@@ -283,6 +295,17 @@ class ConvBN(nn.Module):
                        and self.pad == (1, 1))
 
     def _conv(self, x, kern):
+        if self.dims == 3 and sharding.in_band():
+            if self.fast3d:
+                return banded_conv3d_same(x, kern)
+            if self.fast3d_s2:
+                return banded_conv3d_s2(x, kern)
+            raise NotImplementedError(f"a banded 3-D conv takes stride 1 SAME or 3x3x3 "
+                                      f"stride 2 pad 1; got k {self.k}, stride {self.s}, "
+                                      f"pad {self.pad}, dilation {self.dil}")
+        return self._conv_whole(x, kern)
+
+    def _conv_whole(self, x, kern):
         if self.fast3d:
             return conv3d_same(x, kern)
         if self.fast3d_s2 and all(d % 2 == 0 for d in x.shape[1:4]):
@@ -334,8 +357,9 @@ class DeconvBN(nn.Module):
     ``use_bias=True``).  ``ConvTranspose_0`` holds the flax (k..., Cout,
     Cin) kernel and the bias, both drawn U(-s, s), s = 1/sqrt(prod(k) *
     Cin).  The 3-D k3 s2 deconv goes to
-    ``deconv3d_k3s2``; every other shape (DispNet's 2-D k4 s2) runs as a
-    plain transposed convolution."""
+    ``deconv3d_k3s2`` (on a band inside a banded section,
+    ``banded_deconv3d_k3s2``); every other shape (DispNet's 2-D k4 s2) runs
+    as a plain transposed convolution."""
 
     def __init__(self, cin: int, features: int, kernel, stride=2, dims: int = 2,
                  bn: bool = False, relu: bool = True):
@@ -354,7 +378,10 @@ class DeconvBN(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         x, kern = self.ConvTranspose_0.cast(x)
         if self.k3s2:
-            y = deconv3d_k3s2(x, kern)
+            y = banded_deconv3d_k3s2(x, kern) if sharding.in_band() else deconv3d_k3s2(x, kern)
+        elif self.dims == 3 and sharding.in_band():
+            raise NotImplementedError(f"a banded 3-D transposed conv takes k3 s2; got "
+                                      f"k {tuple(kern.shape[:3])}, stride {self.s}")
         else:
             d = self.dims
             fn = F.conv_transpose2d if d == 2 else F.conv_transpose3d

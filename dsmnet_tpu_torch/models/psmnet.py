@@ -14,6 +14,13 @@ Faithful quirks kept on purpose (``psmnet.py:10-17``):
 ``forward`` returns ``(scales, disps)`` like the JAX model's ``apply``; BN
 uses batch statistics in train mode (``model.train()``) and the running
 statistics in eval mode.
+
+Under a spatial sharding context (``parallel.context``) every ``model``
+rank runs the tower on the whole images; the rest runs on this rank's
+band of the 1/4-resolution rows (``band_multiple`` = 4: the two stride-2
+levels of the hourglasses need whole, even bands), every 3-D op
+exchanging its halo rows, and each returned map is the band of the
+full-resolution rows.
 """
 
 from __future__ import annotations
@@ -25,7 +32,9 @@ import torch.nn.functional as F
 from ..ops.conv3d import deconv3d_k3s2
 from ..ops.cost_volume import concat_cost_volume
 from ..ops.fused_costvol import cost_volume_conv3x3
+from ..parallel import context as sharding
 from ..parallel.context import shard_activation
+from ..parallel.halo import banded_deconv3d_k3s2
 from ..ops.regression import trilinear_soft_argmin
 from ..ops.resize import resize_bilinear
 from .layers import (
@@ -101,7 +110,8 @@ class _Deconv(Kernel):
         super().__init__((3, 3, 3, features, cin), torch_fanin_uniform)
 
     def forward(self, x):
-        return deconv3d_k3s2(*self.cast(x))
+        x, k = self.cast(x)
+        return banded_deconv3d_k3s2(x, k) if sharding.in_band() else deconv3d_k3s2(x, k)
 
 
 class _Hourglass(nn.Module):
@@ -168,6 +178,8 @@ class PSMNet(nn.Module):
     recomputes each hourglass in the backward (JAX ``psmnet.py:228``);
     ``count_levels`` is the number of loss levels, as the JAX field."""
 
+    band_multiple = 4  # rows of a band at 1/4 resolution: a multiple of 4
+
     def __init__(self, maxdisparity: int = 192, count_levels: int = 1,
                  fused_stem: bool = True, remat: bool = False):
         super().__init__()
@@ -196,7 +208,12 @@ class PSMNet(nn.Module):
         if imL.shape != imR.shape:
             raise ValueError(f"image shapes differ: {tuple(imL.shape)} vs {tuple(imR.shape)}")
         fL, fR = siamese(self.feature_extraction, imL, imR)
-        # H-sharded under a spatial mesh axis (not ported yet: the identity)
+        # H-sharded under a spatial mesh axis: this rank's band from here on
+        with sharding.banded(fL.shape[1], self.band_multiple):
+            return self._regularize(imL, fL, fR, clamp)
+
+    def _regularize(self, imL, fL, fR, clamp):
+        """Volume, hourglasses and regression over the features fL, fR."""
         fL, fR = shard_activation(fL), shard_activation(fR)
 
         if self.fused_stem:

@@ -36,7 +36,10 @@ PyTorch version with plain autograd for the rest:
     deconv is plain both ways, as in JAX.
 
 Every weight gradient comes out of its kernel in float32 and is cast to
-the kernel's dtype, as JAX's ``dk.astype(k.dtype)``.
+the kernel's dtype, as JAX's ``dk.astype(k.dtype)``.  Each op's backward
+is also a function of its own (``conv3d_same_vjp``, ``conv3d_s2_vjp``,
+``deconv3d_k3s2_vjp``), for a caller that keeps the op's input itself
+(the banded convs of ``parallel/halo.py``).
 """
 
 from __future__ import annotations
@@ -51,7 +54,7 @@ __all__ = [
     "conv3d_same", "conv3d_s2", "deconv3d_k3s2",
     "conv3d_k3", "conv3d_k3s2", "deconv3d_k3s2_kernel", "conv3d_dk_k3", "conv3d_s2_dk_k3",
     "conv3d_plain", "conv3d_s2_plain", "deconv3d_k3s2_plain", "conv3d_dk_plain",
-    "conv3d_s2_dk_plain",
+    "conv3d_s2_dk_plain", "conv3d_same_vjp", "conv3d_s2_vjp", "deconv3d_k3s2_vjp",
 ]
 
 
@@ -379,6 +382,82 @@ def conv3d_s2_dk_k3(x: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
                             chunks).reshape(3, 3, 3, c, 64)
 
 
+# ------------------------------------------------------------------ VJPs
+
+def _k3_route(x, k) -> bool:
+    return config.impl["conv3d"] != "plain" and conv3d_k3_ok(x, k)
+
+
+def _k3s2_route(x, k) -> bool:
+    return config.impl["conv3d_s2"] != "plain" and conv3d_k3s2_ok(x, k)
+
+
+def _deconv_route(x, k) -> bool:
+    return config.impl["deconv3d"] != "plain" and deconv3d_k3s2_ok(x, k)
+
+
+def _plain_vjp(x, k, g, stride: int, transposed: bool, needs):
+    """(dx, dk) of the plain convolution (SAME for stride 1; pad 1, and
+    output padding 1 when ``transposed``, for stride 2), by the backward
+    that autograd of the plain version runs, None where ``needs`` is False."""
+    pad = [(s - 1) // 2 for s in k.shape[:3]]
+    w = k.permute(4, 3, 0, 1, 2).contiguous()
+    dx, dw, _ = torch.ops.aten.convolution_backward(
+        _ncdhw(g), _ncdhw(x), w, None, [stride] * 3, pad, [1, 1, 1], transposed,
+        [1 if transposed else 0] * 3, 1, [bool(needs[0]), bool(needs[1]), False])
+    return (None if dx is None else _ndhwc(dx),
+            None if dw is None else dw.permute(2, 3, 4, 1, 0))
+
+
+def _k3_vjp(x, k, g, needs):
+    """Kernel B (dx, with the flipped, channel-swapped kernel) and F (dK)."""
+    dx = conv3d_k3(g, k.flip((0, 1, 2)).transpose(3, 4).contiguous()) if needs[0] else None
+    dk = conv3d_dk_k3(x, g).to(k.dtype) if needs[1] else None
+    return dx, dk
+
+
+def _k3s2_vjp(x, k, g, needs):
+    """dx, the k3s2 transposed conv of the cotangent with the forward kernel
+    read as (3,3,3,Cout=C,Cin=64): kernel D for C = 32, plain for C = 64;
+    dK on kernel G."""
+    dx = dk = None
+    if needs[0]:
+        dx = deconv3d_k3s2_kernel(g, k) if deconv3d_k3s2_ok(g, k) else deconv3d_k3s2_plain(g, k)
+    if needs[1]:
+        dk = conv3d_s2_dk_k3(x, g).to(k.dtype)
+    return dx, dk
+
+
+def _deconv_vjp(x, k, g, needs):
+    """Kernel C (d(input)) and G with the roles swapped (dW)."""
+    dx = conv3d_k3s2(g, k) if needs[0] else None
+    dk = conv3d_s2_dk_k3(g, x).to(k.dtype) if needs[1] else None
+    return dx, dk
+
+
+def conv3d_same_vjp(x, k, g, needs):
+    """(dx, dk) of ``conv3d_same`` at (x, k) for the cotangent g, None where
+    ``needs`` is False, on the kernels its forward takes (B, F) or the
+    plain backward: for a caller that keeps x itself (the banded convs of
+    ``parallel/halo.py``)."""
+    g = g.contiguous()
+    return _k3_vjp(x, k, g, needs) if _k3_route(x, k) else _plain_vjp(x, k, g, 1, False, needs)
+
+
+def conv3d_s2_vjp(x, k, g, needs):
+    """(dx, dk) of ``conv3d_s2``, as :func:`conv3d_same_vjp` (D, G)."""
+    g = g.contiguous()
+    return _k3s2_vjp(x, k, g, needs) if _k3s2_route(x, k) \
+        else _plain_vjp(x, k, g, 2, False, needs)
+
+
+def deconv3d_k3s2_vjp(x, k, g, needs):
+    """(dx, dk) of ``deconv3d_k3s2``, as :func:`conv3d_same_vjp` (C, G)."""
+    g = g.contiguous()
+    return _deconv_vjp(x, k, g, needs) if _deconv_route(x, k) \
+        else _plain_vjp(x, k, g, 2, True, needs)
+
+
 # ------------------------------------------------------ autograd Functions
 
 class _Conv3dK3(torch.autograd.Function):
@@ -393,13 +472,7 @@ class _Conv3dK3(torch.autograd.Function):
     @torch.autograd.function.once_differentiable
     def backward(ctx, g):
         x, k = ctx.saved_tensors
-        g = g.contiguous()
-        dx = dk = None
-        if ctx.needs_input_grad[0]:
-            dx = conv3d_k3(g, k.flip((0, 1, 2)).transpose(3, 4).contiguous())
-        if ctx.needs_input_grad[1]:
-            dk = conv3d_dk_k3(x, g).to(k.dtype)
-        return dx, dk
+        return _k3_vjp(x, k, g.contiguous(), ctx.needs_input_grad)
 
 
 class _Conv3dK3S2(torch.autograd.Function):
@@ -415,16 +488,7 @@ class _Conv3dK3S2(torch.autograd.Function):
     @torch.autograd.function.once_differentiable
     def backward(ctx, g):
         x, k = ctx.saved_tensors
-        g = g.contiguous()
-        dx = dk = None
-        if ctx.needs_input_grad[0]:
-            # the stride-2 conv's dx is the k3s2 transposed conv of the
-            # cotangent with the forward kernel, read as (3,3,3,Cout=C,Cin=64)
-            dx = deconv3d_k3s2_kernel(g, k) if deconv3d_k3s2_ok(g, k) \
-                else deconv3d_k3s2_plain(g, k)
-        if ctx.needs_input_grad[1]:
-            dk = conv3d_s2_dk_k3(x, g).to(k.dtype)
-        return dx, dk
+        return _k3s2_vjp(x, k, g.contiguous(), ctx.needs_input_grad)
 
 
 class _Deconv3dK3S2(torch.autograd.Function):
@@ -439,27 +503,21 @@ class _Deconv3dK3S2(torch.autograd.Function):
     @torch.autograd.function.once_differentiable
     def backward(ctx, g):
         x, k = ctx.saved_tensors
-        g = g.contiguous()
-        dx = dk = None
-        if ctx.needs_input_grad[0]:
-            dx = conv3d_k3s2(g, k)
-        if ctx.needs_input_grad[1]:
-            dk = conv3d_s2_dk_k3(g, x).to(k.dtype)
-        return dx, dk
+        return _deconv_vjp(x, k, g.contiguous(), ctx.needs_input_grad)
 
 
 # --------------------------------------------------------------------- ops
 
 def conv3d_same(x: torch.Tensor, k: torch.Tensor) -> torch.Tensor:
     """Stride-1 SAME 3-D conv, x (N,D,H,W,Ci), k (kd,kh,kw,Ci,Co), odd dims."""
-    if config.impl["conv3d"] != "plain" and conv3d_k3_ok(x, k):
+    if _k3_route(x, k):
         return _Conv3dK3.apply(x.contiguous(), k.contiguous())
     return conv3d_plain(x, k)
 
 
 def conv3d_s2(x: torch.Tensor, k: torch.Tensor) -> torch.Tensor:
     """Stride-2 SAME(p=1) 3x3x3 conv; x (N,D,H,W,Ci) with even D/H/W."""
-    if config.impl["conv3d_s2"] != "plain" and conv3d_k3s2_ok(x, k):
+    if _k3s2_route(x, k):
         return _Conv3dK3S2.apply(x.contiguous(), k.contiguous())
     return conv3d_s2_plain(x, k)
 
@@ -467,6 +525,6 @@ def conv3d_s2(x: torch.Tensor, k: torch.Tensor) -> torch.Tensor:
 def deconv3d_k3s2(x: torch.Tensor, k: torch.Tensor) -> torch.Tensor:
     """Exact-2x transposed 3-D conv (k=3, s=2, torch geometry p=1 op=1);
     x (N,D,H,W,Ci), k (3,3,3,Co,Ci) — the flax transpose_kernel layout."""
-    if config.impl["deconv3d"] != "plain" and deconv3d_k3s2_ok(x, k):
+    if _deconv_route(x, k):
         return _Deconv3dK3S2.apply(x.contiguous(), k.contiguous())
     return deconv3d_k3s2_plain(x, k)

@@ -97,8 +97,11 @@ class _CostVolume(torch.autograd.Function):
 
 def concat_cost_volume(fL: torch.Tensor, fR: torch.Tensor, D: int,
                        mask_left: bool = True) -> torch.Tensor:
-    """Concatenation cost volume, (N,H,W,F) x2 -> (N,D,H,W,2F), H-sharded
-    under a spatial mesh axis (``parallel.context.shard_cost_volume``)."""
+    """Concatenation cost volume, (N,H,W,F) x2 -> (N,D,H,W,2F).  Each row
+    of the volume reads its own row of fL and fR alone, so inside a banded
+    section (``parallel.context.banded``) the volume of this rank's bands
+    is its band of the whole volume, with no halo
+    (``parallel.context.shard_cost_volume`` checks that it is one)."""
     from ..parallel.context import shard_cost_volume
 
     if config.impl["cost_volume"] == "plain":

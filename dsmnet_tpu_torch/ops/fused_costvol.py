@@ -299,8 +299,20 @@ def cost_volume_conv3x3(fL, fR, kernel, D: int, mask_left: bool = True):
     fL/fR (N,H,W,F); kernel (3,3,3,2F,O) in DHWIO layout; returns
     (N,D,H,W,O) in fL's dtype — equal (up to float association) to
     ``cost_volume_conv3x3_reference``; in bf16 the sums run in float32 and
-    round once.  H-sharded under a spatial mesh axis
+    round once.  Inside a banded section (``parallel.context.banded``) fL
+    and fR are this rank's bands of rows: the tap maps are 3-tap
+    convolutions in H, so the op runs on the bands padded by a row of each
+    neighbour (``parallel.halo.halo_pad``) and the volume's first and last
+    rows are cropped; the result is the band of the whole volume
     (``parallel.context.shard_cost_volume``)."""
-    from ..parallel.context import shard_cost_volume
+    from ..parallel import context
+    from ..parallel.halo import halo_pad
 
-    return shard_cost_volume(_CostVolumeConv.apply(fL, fR, kernel, D, mask_left))
+    if context.in_band():
+        f = fL.shape[-1]
+        both = halo_pad(torch.cat([fL, fR], dim=-1), 1, 1, 1)  # one exchange for both views
+        out = _CostVolumeConv.apply(both[..., :f], both[..., f:], kernel, D, mask_left)
+        out = out[:, :, 1:out.shape[2] - 1]
+    else:
+        out = _CostVolumeConv.apply(fL, fR, kernel, D, mask_left)
+    return context.shard_cost_volume(out)

@@ -42,8 +42,20 @@ def diff1_dx(x: torch.Tensor) -> torch.Tensor:
 
 
 def diff1_dy(x: torch.Tensor) -> torch.Tensor:
-    """First difference along H, zero-padded bottom (loss.py:41-44)."""
-    return _pad_h(x[:, 1:] - x[:, :-1], 0, 1)
+    """First difference along H, zero-padded bottom (loss.py:41-44).  Inside
+    a banded section (``parallel.context.banded``) ``x`` is this rank's band
+    of rows: its last row's difference reads the first row of the band
+    below (``parallel.halo.halo_pad``), and only the image's last row is 0."""
+    from ..parallel import context
+
+    if not context.in_band():
+        return _pad_h(x[:, 1:] - x[:, :-1], 0, 1)
+    from ..parallel.halo import halo_pad
+
+    m, size, _ = context.spatial_coords()
+    xp = halo_pad(x, 1, 0, 1)
+    d = xp[:, 1:] - xp[:, :-1]
+    return _pad_h(d[:, :-1], 0, 1) if m == size - 1 else d
 
 
 def diff2_dx(x: torch.Tensor) -> torch.Tensor:

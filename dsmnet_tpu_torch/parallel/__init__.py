@@ -1,22 +1,34 @@
-"""Parallelism: the (data, model) mesh over the ranks, data-parallel
-placement, the sharding context, multi-process set-up and the halo
-convolution (``dsmnet_tpu/parallel``).
+"""Parallelism: the (data, model) mesh over the ranks, the placement of
+the state and the batches, the sharding context, multi-process set-up and
+the halo exchanges (``dsmnet_tpu/parallel``).
 
-A data-parallel step is the single-device step on each rank's shard of
-the global batch, with every reduction over the batch made global: LeanBN's
+A step on a mesh is the single-device step on each rank's shard of the
+global batch, with every reduction over the batch made global: LeanBN's
 moments, the losses' counts and means, D1/EPE (``context.py``) and the
-gradients, summed over the data group by the step (``train/steps.py``).
+gradients, summed by the step (``train/steps.py``).  Under a ``model``
+axis above 1 the models that band H run their cost volume and 3-D part
+on one band of rows per rank, each op exchanging the rows it reads
+beyond its band (``halo.py``).
 """
 
-from .halo import halo_conv2d
+from .halo import (
+    banded_conv3d_s2,
+    banded_conv3d_same,
+    banded_deconv3d_k3s2,
+    halo_conv2d,
+    halo_pad,
+)
 from .context import (
     ShardingContext,
     activate,
+    banded,
     current,
+    gather_band,
     shard_activation,
     shard_cost_volume,
 )
 from .mesh import (
+    band,
     batch_sharding,
     make_mesh,
     replicate,
@@ -34,9 +46,12 @@ from .multihost import (
 __all__ = [
     "ShardingContext",
     "activate",
+    "banded",
     "current",
+    "gather_band",
     "shard_activation",
     "shard_cost_volume",
+    "band",
     "batch_sharding",
     "make_mesh",
     "replicate",
@@ -48,4 +63,8 @@ __all__ = [
     "is_primary_host",
     "shard_dataset_for_host",
     "halo_conv2d",
+    "halo_pad",
+    "banded_conv3d_same",
+    "banded_conv3d_s2",
+    "banded_deconv3d_k3s2",
 ]

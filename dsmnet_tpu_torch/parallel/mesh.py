@@ -32,6 +32,9 @@ __all__ = [
     "replicated_sharding",
     "axis_size",
     "axis_index",
+    "mesh_group",
+    "band_rows",
+    "band",
 ]
 
 AXES = ("data", "model")
@@ -71,6 +74,38 @@ def axis_size(mesh, axis: str) -> int:
 def axis_index(mesh, axis: str) -> int:
     """This rank's coordinate on ``axis``."""
     return mesh.get_local_rank(axis)
+
+
+def mesh_group(mesh):
+    """The process group of every rank of ``mesh``: the default group, which
+    a mesh of ``make_mesh`` covers (raises for one that does not)."""
+    if mesh.mesh.numel() != dist.get_world_size():
+        raise ValueError(f"a mesh of {mesh.mesh.numel()} ranks does not cover the "
+                         f"{dist.get_world_size()} ranks of the default group")
+    return dist.group.WORLD
+
+
+def band_rows(h: int, size: int, multiple: int = 1) -> int:
+    """Rows of each of ``size`` bands of ``h`` rows, which must be a whole
+    multiple of ``multiple`` (every stride-2 input of a banded model must
+    split into whole, even bands); raises ``ValueError`` stating the rule."""
+    if h % size or (h // size) % multiple:
+        raise ValueError(
+            f"H = {h} at the features' resolution does not split into {size} bands of a "
+            f"multiple of {multiple} rows: a band must be a whole multiple of {multiple} "
+            f"rows, so (H of the features) / {size} must be divisible by {multiple} "
+            "(PSMNet: (H/4)/M by 4; GCNet: (H/2)/M by 16)")
+    return h // size
+
+
+def band(h: int, mesh, axis: str = "model", multiple: int = 1) -> tuple[int, int]:
+    """The rows [lo, hi) of an H of ``h`` rows that this rank holds when H is
+    split over ``axis`` into contiguous bands, one per coordinate: ``lo = m
+    h / M``.  Each band must be a whole multiple of ``multiple`` rows, else
+    ``ValueError`` states the rule."""
+    rows = band_rows(h, axis_size(mesh, axis), multiple)
+    m = axis_index(mesh, axis)
+    return m * rows, (m + 1) * rows
 
 
 @dataclasses.dataclass(frozen=True)
@@ -115,12 +150,12 @@ def _broadcast(t: torch.Tensor, src: int, group) -> None:
 
 
 @torch.no_grad()
-def replicate(obj, mesh, axis: str = "data"):
-    """Give every rank of the ``axis`` group data-rank 0's parameters, BN
+def replicate(obj, mesh):
+    """Give every rank of the mesh its first rank's parameters, BN
     statistics and optimizer state (and the step) of a TrainState, or the
     parameters and buffers of a module, in place; returns ``obj``."""
-    group = mesh.get_group(axis)
-    src = dist.get_global_rank(group, 0)
+    group = mesh_group(mesh)
+    src = int(mesh.mesh.flatten()[0])
     for t in _state_tensors(obj):
         _broadcast(t, src, group)
     if hasattr(obj, "step") and isinstance(obj.step, int):

@@ -8,7 +8,9 @@ Every rank is one process driving one device:
      torchrun's environment (``RANK``, ``WORLD_SIZE``, ``LOCAL_RANK``);
   2. under ``--multihost`` each reads only its share of the sample lists
      (:func:`shard_dataset_for_host`, strided so shuffled epochs stay
-     balanced), and the global batch is the ranks' batches in rank order;
+     balanced; on a mesh by the rank's ``data`` coordinate, so the ``model``
+     ranks of one data index read the same samples), and the global batch
+     is the data ranks' batches in order;
   3. :func:`global_batch_from_host_local` checks that every rank holds a
      batch of the same shape and puts this rank's on its device.
 
@@ -120,25 +122,34 @@ def host_shard(items: list, process_index: int | None = None,
     return items[pi::pc]
 
 
-def shard_dataset_for_host(dataset) -> None:
+def shard_dataset_for_host(dataset, mesh=None) -> None:
     """Restrict a StereoDataset (or ConcatDataset) to this rank's share of
-    the sample lists, in place.  Datasets without path lists
-    (``SyntheticStereoDataset``) are strided by their ``index_offset`` /
-    ``index_stride``, so that no two ranks feed the same samples."""
+    the sample lists, in place: by its rank among all ranks, or, given a
+    ``mesh``, by its ``data`` coordinate among the data axis's (the
+    ``model`` ranks of one data index read the same samples).  Datasets
+    without path lists (``SyntheticStereoDataset``) are strided by their
+    ``index_offset`` / ``index_stride``, so that no two data indices feed
+    the same samples."""
+    if mesh is None:
+        index, count = process_index(), process_count()
+    else:
+        from .mesh import axis_index, axis_size
+
+        index, count = axis_index(mesh, "data"), axis_size(mesh, "data")
     if hasattr(dataset, "datasets"):
         for d in dataset.datasets:
-            shard_dataset_for_host(d)
+            shard_dataset_for_host(d, mesh)
         return
     if getattr(dataset, "paths_img_left", None) is not None:
         for attr in ("paths_img_left", "paths_img_right",
                      "paths_disp_left", "paths_disp_right"):
             lst = getattr(dataset, attr, None)
             if lst is not None:
-                setattr(dataset, attr, host_shard(lst))
+                setattr(dataset, attr, host_shard(lst, index, count))
         return
     if hasattr(dataset, "index_stride"):
-        dataset.index_offset = process_index()
-        dataset.index_stride = process_count()
+        dataset.index_offset = index
+        dataset.index_stride = count
         return
     warnings.warn(
         f"shard_dataset_for_host: {type(dataset).__name__} has neither path "

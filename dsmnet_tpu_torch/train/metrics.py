@@ -16,8 +16,9 @@ __all__ = ["d1_epe", "AverageMeter"]
 
 def d1_epe(disp: torch.Tensor, disp_gt: torch.Tensor):
     """(d1_percent, epe) as 0-d tensors, of the global batch under a
-    sharding context; a batch with no valid pixel gives (0, 0) rather than
-    NaN, so meters can skip it."""
+    sharding context (over the whole mesh for the bands of a banded
+    section: ``parallel.context.data_sum``); a batch with no valid pixel
+    gives (0, 0) rather than NaN, so meters can skip it."""
     mask = (disp_gt > 0).to(disp.dtype)
     count = data_sum(mask.sum())
     safe = count.clamp(min=1.0)

@@ -24,12 +24,23 @@ Data parallel: under a sharding context (``parallel.activate``) each rank
 steps on its shard of the global batch.  Its loss is its share of the
 global loss (the losses' counts and means, and BN's moments, are global:
 ``parallel/context.py``), so after the backward the step sums the
-gradients over the data group, in one flat bucket, and every rank takes
-the same Adam step that JAX's data-parallel step takes.  The reported
-loss, D1 and EPE are the global batch's.
+gradients in one flat bucket and every rank takes the same Adam step that
+JAX's step on the global batch takes.  The reported loss, D1 and EPE are
+the global batch's.  Under a spatial axis a model that bands H
+(``parallel.context.bands``) returns this rank's band of rows of its
+maps: the supervised steps take the same band of the ground truth, the
+loss and D1/EPE reduce over the whole mesh, and the bucket sums over the
+whole mesh (each rank's gradients are its band's share); a model that
+runs whole on every ``model`` rank sums over the data group alone
+(``parallel.context.gradient_group``).  The eval step returns the whole
+disparity, its bands all-gathered.  The self-supervised steps take no
+band of their views yet: the ``Trainer`` refuses a photometric loss on a
+mesh with ``model`` > 1 (ROADMAP.md, queue 1, item 4).
 """
 
 from __future__ import annotations
+
+import contextlib
 
 import torch
 
@@ -47,6 +58,14 @@ def _split(batch: torch.Tensor):
     return batch[..., :3], batch[..., 3:6], batch[..., 6:7]
 
 
+def _loss_section(model: torch.nn.Module, disp_gt: torch.Tensor):
+    """The section of a supervised step's loss: banded, over the ground
+    truth's rows, when ``model`` bands H under the context."""
+    if sharding.bands(model):
+        return sharding.banded(disp_gt.shape[1])
+    return contextlib.nullcontext()
+
+
 def make_supervised_train_step(model: torch.nn.Module, opt: torch.optim.Optimizer,
                                flag_smooth: bool = True):
     """Returns ``step(state, batch, lr, weights) -> {"loss", "d1", "epe"}``
@@ -56,10 +75,12 @@ def make_supervised_train_step(model: torch.nn.Module, opt: torch.optim.Optimize
         imL, imR, dispL = _split(batch)
         model.train()
         scales, disps = model(imL, imR)
-        loss = supervised_pyramid_loss(dispL, disps, scales, weights, flag_smooth)
-        _adam_step(state, opt, loss, lr)
-        d1, epe = d1_epe(disps[0].detach(), dispL)
-        return {"loss": sharding.data_sum(loss.detach()), "d1": d1, "epe": epe}
+        with _loss_section(model, dispL):
+            dispL = sharding.shard_activation(dispL)
+            loss = supervised_pyramid_loss(dispL, disps, scales, weights, flag_smooth)
+            _adam_step(state, opt, loss, lr, sharding.gradient_group(model))
+            d1, epe = d1_epe(disps[0].detach(), dispL)
+            return {"loss": sharding.data_sum(loss.detach()), "d1": d1, "epe": epe}
 
     return step
 
@@ -77,13 +98,13 @@ def _sum_gradients(opt: torch.optim.Optimizer, group) -> None:
 
 
 def _adam_step(state: TrainState, opt: torch.optim.Optimizer, loss: torch.Tensor,
-               lr: float) -> None:
-    """Backward, the gradients summed over the data group under a sharding
-    context, then Adam at the step's learning rate (applied outside the
-    moments, as JAX's -lr * u: train/steps.py:73-75)."""
+               lr: float, group) -> None:
+    """Backward, the gradients summed over ``group`` (the context's
+    ``gradient_group``; None: no sum), then Adam at the step's learning
+    rate (applied outside the moments, as JAX's -lr * u:
+    train/steps.py:73-75)."""
     opt.zero_grad(set_to_none=True)
     loss.backward()
-    group = sharding.data_group()
     if group is not None:
         with torch.profiler.record_function("grad_allreduce"):
             _sum_gradients(opt, group)
@@ -103,9 +124,12 @@ def make_supervised_eval_step(model: torch.nn.Module, flag_smooth: bool = True):
         imL, imR, dispL = _split(batch)
         model.eval()
         scales, disps = model(imL, imR)
-        loss = supervised_pyramid_loss(dispL, disps, scales, weights, flag_smooth)
-        d1, epe = d1_epe(disps[0], dispL)
-        return {"loss": sharding.data_sum(loss), "d1": d1, "epe": epe, "disp": disps[0]}
+        with _loss_section(model, dispL):
+            dispL = sharding.shard_activation(dispL)
+            loss = supervised_pyramid_loss(dispL, disps, scales, weights, flag_smooth)
+            d1, epe = d1_epe(disps[0], dispL)
+            return {"loss": sharding.data_sum(loss), "d1": d1, "epe": epe,
+                    "disp": sharding.gather_band(disps[0])}
 
     return step
 
@@ -172,7 +196,7 @@ def make_selfsup_train_step(model: torch.nn.Module, opt: torch.optim.Optimizer,
              draws: SelfsupDraws) -> dict:
         model.train()
         loss, disp, v = selfsup_loss(model, cfg, batch, nedge, weights, draws.to(batch.device))
-        _adam_step(state, opt, loss, lr)
+        _adam_step(state, opt, loss, lr, sharding.gradient_group(model))
         d1, epe = _d1_epe_of_views(disp.detach(), v)
         return {"loss": sharding.data_sum(loss.detach()), "d1": d1, "epe": epe}
 

@@ -16,15 +16,19 @@ augmentation from a generator seeded by (``seed`` + 1, the step), so a
 resumed run draws what an unbroken one would (JAX folds the step into
 ``PRNGKey(seed + 1)``).
 
-With a ``mesh`` (``parallel.make_mesh``; ``(data, 1)``: spatial sharding
-is not ported yet) every rank is a process of a data-parallel run, as
-JAX's ``Trainer(cfg, mesh=...)``: the state is replicated from data-rank
-0, the steps run under a ``ShardingContext`` (global BN moments, losses,
-metrics; the gradients summed over the ranks), each rank places its
-share of the global batch (``shard_batch`` of a global batch, or, from a
+With a ``mesh`` (``parallel.make_mesh``) every rank is a process of a
+parallel run, as JAX's ``Trainer(cfg, mesh=...)``: the state is
+replicated from the mesh's first rank, the steps run under a
+``ShardingContext`` (global BN moments, losses, metrics; the gradients
+summed over the ranks), each rank places its share of the global batch
+by its ``data`` coordinate (``shard_batch`` of a global batch, or, from a
 loader cut by ``rank_slice`` or under ``cfg.multihost``, its own batch
 through ``global_batch_from_host_local``), and the meters count the
-global batch.  Checkpoints, the history, the curves and ``submit``'s
+global batch.  A mesh with ``model`` > 1 also splits H over the ``model``
+ranks (``ShardingContext(mesh, "data", "model")``, as JAX's trainer sets
+``spatial``): PSMNet and GCNet train on bands of rows, the other models
+run whole on every ``model`` rank; the self-supervised losses do not
+band yet and raise ``NotImplementedError`` there.  Checkpoints, the history, the curves and ``submit``'s
 files are written by the primary rank, and every rank waits at a
 barrier until they are.
 """
@@ -129,11 +133,8 @@ class Trainer:
         self.mesh = mesh
         self._sharding_ctx = None
         if mesh is not None:
-            if axis_size(mesh, "model") > 1:
-                raise NotImplementedError(
-                    "a mesh with model > 1 shards H, which is not ported yet: ROADMAP.md, "
-                    "queue 1, 'Spatial sharding'")
-            self._sharding_ctx = ShardingContext(mesh, "data", None)
+            spatial = "model" if axis_size(mesh, "model") > 1 else None
+            self._sharding_ctx = ShardingContext(mesh, "data", spatial)
 
         model_kwargs = {}
         if cfg.remat:
@@ -149,6 +150,12 @@ class Trainer:
                                               max(maxepoch_adjust, 1))
         if cfg.mode == "finetune":
             self.spec = dataclasses.replace(self.spec, maxepoch_weight_adjust=0)
+        if self._sharding_ctx is not None and self._sharding_ctx.spatial_axis \
+                and not self.spec.supervised:
+            raise NotImplementedError(
+                f"--loss_name {cfg.loss_name} on a mesh with model > 1: the self-supervised "
+                "path does not band H yet (ROADMAP.md, queue 1, item 4, 'The "
+                "self-supervised path under a model axis')")
 
         self.dirpath = os.path.join(
             cfg.output, f"{cfg.mode}_{cfg.dataset}", f"{cfg.net}_{cfg.loss_name}"

@@ -287,14 +287,17 @@ def test_cli_mesh_flags(two_ranks):
             d.process_id) == (0, 1, False, "", 0, -1)  # JAX's defaults
     base = ["--mode", "train", "--net", "dispnet", "--maxdisparity", "16", "--dataset",
             "synthetic", "--device", "cpu"]
-    with pytest.raises(NotImplementedError, match="Spatial sharding"):
-        cli.main(base + ["--mesh-model", "2"])
-    with pytest.raises(ValueError, match="exceeds the one rank"):
-        cli.main(base + ["--mesh-data", "2"])
-    # under a group of 2: a mesh that leaves a rank out, or exceeds them, raises
-    for o in (r["checks"] for r in two_ranks[1]):
-        assert "Spatial sharding" in o["trainer_model2"]
+    for flag in ("--mesh-model", "--mesh-data"):
+        with pytest.raises(ValueError, match="exceeds the one rank"):
+            cli.main(base + [flag, "2"])
+    # under a group of 2: --mesh-model 2 makes a (1, 2) mesh; a photometric
+    # loss on it raises, naming the ROADMAP item; a mesh that leaves a rank
+    # out, or exceeds them, raises
+    for rank, o in enumerate(r["checks"] for r in two_ranks[1]):
+        assert o["cli_mesh_model2"] == ((1, 2), rank)
+        assert "ROADMAP.md, queue 1, item 4" in o["trainer_model2"]
         assert o["cli_model2"][0] == "NotImplementedError"
+        assert "ROADMAP.md, queue 1, item 4" in o["cli_model2"][1]
         assert o["cli_data1"] == ("ValueError", "mesh 1x1 does not cover the 2 ranks: a rank "
                                                 "outside the mesh would train alone")
         assert o["cli_data4"] == ("ValueError", "mesh 4x1 exceeds 2 ranks")
@@ -322,8 +325,9 @@ def test_trainer_places_batches_and_draws_on_mesh(two_ranks):
 
 def test_context_and_its_call_sites(monkeypatch):
     """activate/current nest; without a context the reductions are the
-    single-process expressions; with a spatial axis the call sites raise;
-    the models and ops reach them."""
+    single-process expressions; with a spatial axis, outside a banded
+    section, the call sites are the identity (a model that does not band
+    runs whole); the models and ops reach them."""
     assert current() is None
     a, b = ShardingContext(mesh=None), ShardingContext(mesh=None, spatial_axis="model")
     with activate(a):
@@ -337,9 +341,8 @@ def test_context_and_its_call_sites(monkeypatch):
     assert context.mean_share(x).item() == context.data_mean(x).item() == 2.5
     assert shard_activation(x) is x and shard_cost_volume(x) is x
     with activate(b):
-        for fn in (shard_activation, shard_cost_volume):
-            with pytest.raises(NotImplementedError, match="Spatial sharding"):
-                fn(x)
+        assert not context.in_band()
+        assert shard_activation(x) is x and shard_cost_volume(x) is x
     from dsmnet_tpu_torch.models import gcnet, psmnet
 
     calls = []

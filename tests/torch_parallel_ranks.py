@@ -279,19 +279,24 @@ def placement(rank, world, payload):
 
 
 def mesh_checks(rank, world, payload):
-    """What refuses to run on 2 ranks (a Trainer on a mesh with model > 1,
-    the CLI's --mesh-model 2 and a --mesh-data that leaves a rank out), and
-    a Trainer's placement and draws on a (2, 1) mesh."""
+    """What refuses to run on 2 ranks (a Trainer with a photometric loss on a
+    mesh with model > 1, the same through the CLI's --mesh-model 2, and a
+    --mesh-data that leaves a rank out), the CLI's mesh for --mesh-model 2,
+    and a Trainer's placement and draws on a (2, 1) mesh."""
+    import argparse
+
     from dsmnet_tpu_torch import cli
     from dsmnet_tpu_torch.parallel import make_mesh
     from dsmnet_tpu_torch.train import TrainConfig, Trainer
 
     out = {}
     try:
-        Trainer(TrainConfig(net="dispnet", maxdisparity=16, device="cpu"),
-                mesh=make_mesh(data=1, model=2))
+        Trainer(TrainConfig(net="dispnet", maxdisparity=16, loss_name="Cap_ds-mask",
+                            device="cpu"), mesh=make_mesh(data=1, model=2))
     except NotImplementedError as exc:
         out["trainer_model2"] = str(exc)
+    mesh = cli._make_mesh(argparse.Namespace(mesh_data=0, mesh_model=2))
+    out["cli_mesh_model2"] = (tuple(mesh.shape), mesh.get_local_rank("model"))
     # a Trainer on a (2, 1) mesh places its part of a global batch, or of a
     # loader's per-rank batch, and draws its rows of the global batch's draws
     t = Trainer(TrainConfig(net="gcnet", maxdisparity=16, loss_name="Cap_ds-mask",
@@ -305,7 +310,7 @@ def mesh_checks(rank, world, payload):
     out["draws"] = [_np(v) for v in (d.order, d.u, d.alpha, d.eps)]
     base = ["--mode", "train", "--net", "dispnet", "--maxdisparity", "16", "--dataset",
             "synthetic", "--device", "cpu"]
-    for key, flags in (("cli_model2", ["--mesh-model", "2"]),
+    for key, flags in (("cli_model2", ["--mesh-model", "2", "--loss_name", "Cap_ds-mask"]),
                        ("cli_data1", ["--mesh-data", "1"]), ("cli_data4", ["--mesh-data", "4"])):
         try:
             cli.main(base + flags)
@@ -316,6 +321,130 @@ def mesh_checks(rank, world, payload):
 
 
 _NO_GROUP = {"init_paths"}
+
+
+# ------------------------------------------------------ spatial sharding
+
+def _band(x, dim: int, rank: int, world: int) -> torch.Tensor:
+    """Rows [rank h / world, (rank + 1) h / world) of ``x`` on ``dim``, a copy."""
+    x = torch.from_numpy(x) if isinstance(x, np.ndarray) else x
+    rows = x.shape[dim] // world
+    return x.narrow(dim, rank * rows, rows).clone()
+
+
+def _spatial_ctx(world: int):
+    from dsmnet_tpu_torch.parallel import ShardingContext, make_mesh
+
+    mesh = make_mesh(data=1, model=world)
+    return mesh, ShardingContext(mesh, "data", "model")
+
+
+def halo_pads(rank, world, payload):
+    """``halo_pad`` of this rank's band of each case's 5-D tensor (H on dim
+    2) by its (above, below) rows on a (1, world) mesh, and the gradient of
+    sum(out * g[rank]) with respect to the band (the adjoint)."""
+    from dsmnet_tpu_torch.parallel import activate, halo_pad
+    from dsmnet_tpu_torch.parallel import context
+
+    _, ctx = _spatial_ctx(world)
+    out = {}
+    for case, p in payload.items():
+        xl = _band(p["x"], 2, rank, world).requires_grad_(True)
+        before = context.COLLECTIVES.get("halo_exchange", 0)
+        with activate(ctx):
+            y = halo_pad(xl, 2, *p["rows"])
+        (y * torch.from_numpy(p["g"][rank])).sum().backward()
+        out[case] = {"y": _np(y), "dx": _np(xl.grad),
+                     "exchanges": context.COLLECTIVES["halo_exchange"] - before}
+    return out
+
+
+def banded_ops(rank, world, payload):
+    """The banded ops on this rank's band on a (1, world) mesh, float64,
+    each with the gradients of sum(out * g) (g's band): the 3-D convs on a
+    band of H (dim 2), the fused stem and the concat volume inside a banded
+    section of the features' H, the trilinear soft-argmin inside one of the
+    coarse cost's H, the supervised loss (summed over the ranks: each
+    rank's share) and D1/EPE inside one of the maps' H; the band rule's
+    errors; ``replicate`` over the mesh."""
+    from dsmnet_tpu_torch.losses import supervised_pyramid_loss
+    from dsmnet_tpu_torch.models import create_model
+    from dsmnet_tpu_torch.ops import concat_cost_volume, cost_volume_conv3x3
+    from dsmnet_tpu_torch.ops import trilinear_soft_argmin
+    from dsmnet_tpu_torch.parallel import (activate, banded, banded_conv3d_s2,
+                                           banded_conv3d_same, banded_deconv3d_k3s2, replicate)
+    from dsmnet_tpu_torch.train import create_train_state
+    from dsmnet_tpu_torch.train.metrics import d1_epe
+
+    mesh, ctx = _spatial_ctx(world)
+    band = lambda x, dim: _band(x, dim, rank, world)
+    t = lambda a: torch.from_numpy(a)
+    ops = {"conv3d_same": banded_conv3d_same, "deconv3d_k3s2": banded_deconv3d_k3s2,
+           "conv3d_s2": banded_conv3d_s2}
+    out = {}
+    with activate(ctx):
+        for name, p in payload["convs"].items():
+            xl = band(p["x"], 2).requires_grad_(True)
+            k = t(p["k"]).clone().requires_grad_(True)
+            y = ops[name](xl, k)
+            (y * band(p["g"], 2)).sum().backward()
+            out[name] = {"y": _np(y), "dx": _np(xl.grad), "dk": _np(k.grad)}
+        for name, p in payload["volumes"].items():
+            fL, fR = (band(p[key], 1).requires_grad_(True) for key in ("fL", "fR"))
+            k = t(p["k"]).clone().requires_grad_(True) if "k" in p else None
+            with banded(p["fL"].shape[1]):
+                y = cost_volume_conv3x3(fL, fR, k, p["D"], p["mask_left"]) if k is not None \
+                    else concat_cost_volume(fL, fR, p["D"], p["mask_left"])
+            (y * band(p["g"], 2)).sum().backward()
+            out[name] = {"y": _np(y), "dfL": _np(fL.grad), "dfR": _np(fR.grad),
+                         "dk": None if k is None else _np(k.grad)}
+        p = payload["regression"]
+        cost = band(p["cost"], 2).requires_grad_(True)
+        with banded(p["cost"].shape[2]):
+            y = trilinear_soft_argmin(cost, p["out_dhw"], h_chunk=3)
+        (y * band(p["g"], 1)).sum().backward()
+        out["regression"] = {"y": _np(y), "dcost": _np(cost.grad)}
+        p = payload["loss"]
+        disp, gt = band(p["disp"], 1).requires_grad_(True), band(p["gt"], 1)
+        with banded(p["gt"].shape[1]):
+            loss = supervised_pyramid_loss(gt, [disp], [0], np.ones(1))
+            d1, epe = d1_epe(disp.detach(), gt)
+        loss.backward()
+        out["loss"] = {"loss": _np(loss), "ddisp": _np(disp.grad), "d1_epe": (_np(d1), _np(epe))}
+        out["rule"] = []
+        for h, multiple in ((6, 4), (12, 4), (7, 1)):
+            try:
+                with banded(h, multiple):
+                    out["rule"].append(None)
+            except ValueError as exc:
+                out["rule"].append(str(exc))
+        # GCNet at 48 rows: 24 at 1/2, two bands of 12, not a multiple of 16
+        img = torch.zeros(1, 48, 64, 3)
+        try:
+            with torch.no_grad():
+                create_model("gcnet", 16).eval()(img, img)
+            out["rule"].append(None)
+        except ValueError as exc:
+            out["rule"].append(str(exc))
+    # every rank draws other weights; replicate gives every rank the mesh's
+    # first rank's parameters, statistics and Adam state
+    model = create_model("gcnet", 16).reset_parameters(torch.Generator().manual_seed(rank))
+    state, opt = create_train_state(model, device="cpu")
+    for q in model.parameters():
+        q.grad = torch.full_like(q, float(rank + 1))
+    opt.step()
+    replicate(state, mesh)
+    out["replicate"] = {"digest": {k: _digest(v) for k, v in model.state_dict().items()},
+                        "adam": _digest(opt.state[next(model.parameters())]["exp_avg"])}
+    # a host's share of the datasets follows its data coordinate: both
+    # model ranks of the one data index read every sample
+    from dsmnet_tpu_torch.data import SyntheticStereoDataset
+    from dsmnet_tpu_torch.parallel import shard_dataset_for_host
+
+    ds = SyntheticStereoDataset(n=6, hw=(4, 4))
+    shard_dataset_for_host(ds, mesh)
+    out["dataset_shard"] = (ds.index_offset, ds.index_stride, len(ds))
+    return out
 
 
 def init_paths(rank, world, payload):
@@ -356,24 +485,60 @@ def _grads_params_buffers(model, rank: int) -> dict:
 
 
 def supervised_step(rank, world, payload):
-    """One float64 supervised step of the port's model on this rank's shard
-    of the global batch, under a (world, 1) mesh, from the flax weights."""
+    """One float64 supervised step of the port's model (with
+    ``payload["kwargs"]``) on this rank's shard of the global batch, from
+    the flax weights, under a (world, 1) mesh or the (data, model) of
+    ``payload["mesh"]`` (H split over ``model``, the spatial axis); and the
+    step's all-reduces and halo exchanges by site.  Given ``thin_batch``,
+    a second step from the same weights on it (under ``"thin"``) and, with
+    ``gcnet_lr``, the eval forward of a seeded ``GCNetLR`` of that
+    maxdisparity on its pairs, each map's bands gathered (under ``"lr"``)."""
+    from dsmnet_tpu_torch.parallel import ShardingContext, make_mesh
+    from dsmnet_tpu_torch.parallel.mesh import axis_index
+
+    data, model = payload.get("mesh", (world, 1))
+    mesh = make_mesh(data=data, model=model)
+    ctx = ShardingContext(mesh, "data", "model" if model > 1 else None)
+    out = _supervised_step(rank, mesh, ctx, payload, payload["batch"])
+    if "thin_batch" in payload:
+        out["thin"] = _supervised_step(rank, mesh, ctx, payload, payload["thin_batch"])
+    if "gcnet_lr" in payload:
+        out["lr"] = _gcnet_lr_eval(mesh, ctx, payload["gcnet_lr"], payload["thin_batch"])
+        out["data_index"] = axis_index(mesh, "data")
+    return out
+
+
+def _supervised_step(rank, mesh, ctx, payload, global_batch):
     from dsmnet_tpu_torch import interop
     from dsmnet_tpu_torch.models import create_model
-    from dsmnet_tpu_torch.parallel import ShardingContext, activate, make_mesh, replicate
-    from dsmnet_tpu_torch.parallel import shard_batch
+    from dsmnet_tpu_torch.parallel import activate, context, replicate, shard_batch
     from dsmnet_tpu_torch.train import create_train_state, make_supervised_train_step
 
-    tm = create_model(payload["net"], payload["maxdisp"]).double()
-    interop.load_flax_variables(tm, payload["params"], payload["batch_stats"])
-    mesh = make_mesh(data=world)
+    tm = create_model(payload["net"], payload["maxdisp"], **payload.get("kwargs", {})).double()
+    interop.load_flax_variables(tm, payload["params"], payload.get("batch_stats"))
     state, opt = create_train_state(tm, device="cpu")
     replicate(state, mesh)
-    batch = shard_batch(payload["batch"], mesh)
-    with activate(ShardingContext(mesh)):
+    batch = shard_batch(global_batch, mesh)
+    before = dict(context.COLLECTIVES)
+    with activate(ctx):
         m = make_supervised_train_step(tm, opt)(state, batch, payload["lr"], payload["weights"])
     return {**{k: v.item() for k, v in m.items()}, **_grads_params_buffers(tm, rank),
-            "step": state.step}
+            "step": state.step, "collectives": {
+                k: v - before.get(k, 0) for k, v in context.COLLECTIVES.items()}}
+
+
+def _gcnet_lr_eval(mesh, ctx, maxdisp: int, global_batch):
+    """A seeded float64 ``GCNetLR``'s (dispL, dispR) of this data index's
+    pairs, H banded over ``model``, the bands gathered."""
+    from dsmnet_tpu_torch.models.gcnet import GCNetLR
+    from dsmnet_tpu_torch.parallel import activate, banded, gather_band, shard_batch
+
+    model = GCNetLR(maxdisp).reset_parameters(torch.Generator().manual_seed(0)).double().eval()
+    batch = shard_batch(global_batch, mesh)
+    with activate(ctx), torch.no_grad():
+        maps = model(batch[..., :3], batch[..., 3:6])
+        with banded(batch.shape[1]):
+            return [_np(gather_band(d)) for d in maps]
 
 
 def selfsup_step(rank, world, payload):
@@ -400,20 +565,27 @@ def selfsup_step(rank, world, payload):
 
 
 def trainer(rank, world, payload):
-    """The port's Trainer on a (world, 1) mesh through ``payload["cfg"]``,
-    with loaders cut into the ranks' slices: its history, weights and
-    files; then what a Trainer of ``payload["resume_cfg"]`` resumes from."""
+    """The port's Trainer through ``payload["cfg"]`` on a (world, 1) mesh or
+    the (data, model) of ``payload["mesh"]``, with loaders cut into the
+    data indices' slices: its history, weights and files, and the size of
+    the group its gradient bucket sums over; then, given
+    ``payload["resume_cfg"]``, what a Trainer of it resumes from."""
+    import torch.distributed as dist
+
     from dsmnet_tpu_torch.data import BatchLoader, SyntheticStereoDataset, eval_transform
-    from dsmnet_tpu_torch.parallel import make_mesh
+    from dsmnet_tpu_torch.parallel import activate, make_mesh
+    from dsmnet_tpu_torch.parallel import context
+    from dsmnet_tpu_torch.parallel.mesh import axis_index
     from dsmnet_tpu_torch.train import TrainConfig, Trainer
 
-    mesh = make_mesh(data=world)
+    data, model = payload.get("mesh", (world, 1))
+    mesh = make_mesh(data=data, model=model)
 
     def loader(shuffle):
         ds = SyntheticStereoDataset(n=payload["n"], hw=payload["hw"], max_disp=16,
                                     transform=eval_transform())
         return BatchLoader(ds, batch_size=payload["batch"], shuffle=shuffle, num_workers=1,
-                           seed=0, rank_slice=(rank, world))
+                           seed=0, rank_slice=(axis_index(mesh, "data"), data))
 
     t = Trainer(TrainConfig(**payload["cfg"], device="cpu"), loader_train=loader(True),
                 loader_val=loader(False), mesh=mesh)
@@ -425,6 +597,11 @@ def trainer(rank, world, payload):
         out["state"] = {k: _np(v) for k, v in state.items()}
     out["step"] = t.state.step
     out["files"] = sorted(os.listdir(t.dirpath))
+    with activate(t._sharding_ctx):
+        out["grad_group_size"] = dist.get_world_size(context.gradient_group(t.model))
+        out["spatial_axis"] = context.current().spatial_axis
+    if "resume_cfg" not in payload:
+        return out
     # a resumed Trainer on every rank, from what rank 0 wrote: the state this
     # rank ended with, Adam's moments included
     t2 = Trainer(TrainConfig(**payload["resume_cfg"], device="cpu"), loader_train=loader(True),
