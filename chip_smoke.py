@@ -152,7 +152,20 @@ over NCCL (``sp4_nccl``); neither prints an ``ok`` line.
    exchanges a step and the peak memory a rank beside
    ``train_bf16``'s; (c) SP2_GCNET_STEPS bf16 GCNet steps at
    batch 1, launches against ``sp2_gcnet`` (H, and B and F at 128 -> 128,
-   at band shapes).
+   at band shapes); (d) the self-supervised step (PSMNet as 11.'s
+   ``train_selfsup_psmnet_bf16`` trains it: 256x640 views of 384x768
+   pairs, the towers whole, the loss on each rank's band of the views) in
+   float32 on one pair a data index with step 0's draws, of
+   SP2_SELFSUP_LOSS and of ``common-mask`` (whose ``C_ds3`` takes per-image
+   means over the model group), its global loss equal on the ranks and its
+   summed gradients against the one process's as in (a); (e) SP2_STEPS bf16 self-supervised steps at
+   TRAIN_BATCH pairs and one profiled step: launches against the
+   ``sp2_selfsup`` rows (A and E at the views' tower shapes, B-D, F, G and J
+   at the views' band shapes, two forwards a step), the halo exchanges and
+   the per-image sums over the model group (``model_sum``) a step, the
+   device ms under ``photometric_loss``, ``halo_exchange`` and
+   ``halo_pad``, the median rank-step ms and the peak memory a rank beside
+   ``train_selfsup_psmnet_bf16``'s.
 14. The script's command time, one ``{"kernels": [...]}`` line (launches
    and times on each kernel's first path, "primary": the train step for
    A-G and J, GCNet's request for H, DispNetC's for I, iResNet's step for
@@ -332,6 +345,13 @@ DP2_DEVICE = "cuda:0"  # both ranks' card
 # pairs on both ranks, GCNet's at batch 1; the f32 check's summed gradients
 # as dp2's (a)
 SP2_RANKS, SP2_STEPS, SP2_GCNET_STEPS = 2, 4, 2
+# the self-supervised part of that phase: PSMNet as train_selfsup_psmnet_bf16
+# trains it (384x768 pairs, SH x SW views), the loss on each rank's band;
+# its f32 check also with common-mask, whose C_ds3 edge weights take
+# per-image means over the model group and whose ratio differences read
+# the neighbours' rows
+SP2_SELFSUP_LOSS = SELFSUP_RUNS["psmnet"][1]
+SP2_SELFSUP_F32_LOSSES = (SP2_SELFSUP_LOSS, "common-mask")
 # a collective waits this long for a rank before it fails
 DP_TIMEOUT_S = 300
 
@@ -804,45 +824,50 @@ def kernel_specs():
                     (maps(2, 3, 37, 64), maps(2, 3, 37, 64), 13, False)]),
     ]
     # spatial sharding (sp2_train: a rank's bf16 PSMNet step at TRAIN_BATCH,
-    # sp2_gcnet: its GCNet step at batch 1, H over SP2_RANKS ranks): the
-    # towers run whole, so A and E take the train paths' shapes; a 3-D op
-    # runs on its band padded by its halo rows, ``e`` of them: 2 for a
-    # stride-1 conv (1, 1) and a stride-2 conv (2, 0), 1 for a deconv's
-    # input (0, 1) and a stride-2 conv's output before its first row is
-    # dropped; the stem's tap maps on the features' band + 2 rows; H on the
-    # band of GCNet's features
+    # sp2_gcnet: its GCNet step at batch 1, sp2_selfsup: its self-supervised
+    # PSMNet step at TRAIN_BATCH pairs, two forwards of the SH x SW views and
+    # their backward; H over SP2_RANKS ranks): the towers run whole, so A and
+    # E take the train paths' shapes; a 3-D op runs on its band padded by its
+    # halo rows, ``e`` of them: 2 for a stride-1 conv (1, 1) and a stride-2
+    # conv (2, 0), 1 for a deconv's input (0, 1) and a stride-2 conv's output
+    # before its first row is dropped; the stem's tap maps on the features'
+    # band + 2 rows; H on the band of GCNet's features
     R = SP2_RANKS
-    sb = lambda lvl, c, e: (B, D4 >> lvl, (H4 >> lvl) // R + e, W4 >> lvl, c)
+
+    def psmnet_bands(h4, w4, times):
+        """A rank's band shapes of PSMNet's step on h4 x w4 features, each
+        launched ``times`` as often as in one forward and its backward."""
+        sb = lambda lvl, c, e: (B, D4 >> lvl, (h4 >> lvl) // R + e, w4 >> lvl, c)
+        t = times
+        return {
+            "conv3d_k3": [(sb(0, 32, 2), k3(32, 32), 12 * t), (sb(1, 64, 2), k3(64, 64), 6 * t),
+                          (sb(2, 64, 2), k3(64, 64), 6 * t)],
+            "conv3d_k3s2": [(sb(0, 32, 2), k3(32, 64), 6 * t), (sb(1, 64, 2), k3(64, 64), 3 * t)],
+            "deconv3d_k3s2": [(sb(1, 64, 1), k3(32, 64), 6 * t)],
+            "conv3d_dk_k3": [(sb(0, 32, 2), sb(0, 32, 2), 6 * t), (sb(1, 64, 2), sb(1, 64, 2), 3 * t),
+                             (sb(2, 64, 2), sb(2, 64, 2), 3 * t)],
+            "conv3d_dk_k3s2": [(sb(0, 32, 2), sb(1, 64, 1), 6 * t),
+                               (sb(1, 64, 2), sb(2, 64, 1), 3 * t)],
+            "fused_costvol": [(maps(B, h4 // R + 2, w4), maps(B, h4 // R + 2, w4), t, D4, True)]}
+
     gb = lambda lvl, c, e: (Bg, D2 >> lvl, (H2 >> lvl) // R + e, W2 >> lvl, c)
-    band_paths = {
-        "conv3d_k3": {
-            "sp2_train": [(sb(0, 32, 2), k3(32, 32), 12), (sb(1, 64, 2), k3(64, 64), 6),
-                          (sb(2, 64, 2), k3(64, 64), 6)],
-            "sp2_gcnet": [(gb(0, 64, 2), k3(64, 32), 1), (gb(0, 32, 2), k3(32, 32), 2),
+    band_paths = {name: {"sp2_train": rows, "sp2_selfsup": psmnet_bands(SH4, SW4, 2)[name]}
+                  for name, rows in psmnet_bands(H4, W4, 1).items()}
+    for name, rows in {
+            "conv3d_k3": [(gb(0, 64, 2), k3(64, 32), 1), (gb(0, 32, 2), k3(32, 32), 2),
                           (gb(0, 32, 2), k3(32, 64), 1), (gb(1, 64, 2), k3(64, 64), 4),
                           (gb(2, 64, 2), k3(64, 64), 4), (gb(3, 64, 2), k3(64, 64), 4),
-                          (gb(4, 128, 2), k3(128, 128), 4)]},
-        "conv3d_k3s2": {
-            "sp2_train": [(sb(0, 32, 2), k3(32, 64), 6), (sb(1, 64, 2), k3(64, 64), 3)],
-            "sp2_gcnet": [(gb(0, 64, 2), k3(64, 64), 1), (gb(1, 64, 2), k3(64, 64), 1),
-                          (gb(2, 64, 2), k3(64, 64), 1), (gb(0, 32, 2), k3(32, 64), 1)]},
-        "deconv3d_k3s2": {"sp2_train": [(sb(1, 64, 1), k3(32, 64), 6)],
-                          "sp2_gcnet": [(gb(1, 64, 1), k3(32, 64), 1)]},
-        "conv3d_dk_k3": {
-            "sp2_train": [(sb(0, 32, 2), sb(0, 32, 2), 6), (sb(1, 64, 2), sb(1, 64, 2), 3),
-                          (sb(2, 64, 2), sb(2, 64, 2), 3)],
-            "sp2_gcnet": [(gb(0, 64, 2), gb(0, 32, 2), 1), (gb(0, 32, 2), gb(0, 32, 2), 1),
-                          (gb(1, 64, 2), gb(1, 64, 2), 2), (gb(2, 64, 2), gb(2, 64, 2), 2),
-                          (gb(3, 64, 2), gb(3, 64, 2), 2), (gb(4, 128, 2), gb(4, 128, 2), 2)]},
-        "conv3d_dk_k3s2": {
-            "sp2_train": [(sb(0, 32, 2), sb(1, 64, 1), 6), (sb(1, 64, 2), sb(2, 64, 1), 3)],
-            "sp2_gcnet": [(gb(0, 64, 2), gb(1, 64, 1), 1), (gb(1, 64, 2), gb(2, 64, 1), 1),
-                          (gb(2, 64, 2), gb(3, 64, 1), 1), (gb(0, 32, 2), gb(1, 64, 1), 1)]},
-        "fused_costvol": {"sp2_train": [(maps(B, H4 // R + 2, W4), maps(B, H4 // R + 2, W4), 1,
-                                         D4, True)]},
-        "cost_volume": {"sp2_gcnet": [((Bg, H2 // R, W2, 32), (Bg, H2 // R, W2, 32), 1, D2,
-                                       False)]},
-    }
+                          (gb(4, 128, 2), k3(128, 128), 4)],
+            "conv3d_k3s2": [(gb(0, 64, 2), k3(64, 64), 1), (gb(1, 64, 2), k3(64, 64), 1),
+                            (gb(2, 64, 2), k3(64, 64), 1), (gb(0, 32, 2), k3(32, 64), 1)],
+            "deconv3d_k3s2": [(gb(1, 64, 1), k3(32, 64), 1)],
+            "conv3d_dk_k3": [(gb(0, 64, 2), gb(0, 32, 2), 1), (gb(0, 32, 2), gb(0, 32, 2), 1),
+                             (gb(1, 64, 2), gb(1, 64, 2), 2), (gb(2, 64, 2), gb(2, 64, 2), 2),
+                             (gb(3, 64, 2), gb(3, 64, 2), 2), (gb(4, 128, 2), gb(4, 128, 2), 2)],
+            "conv3d_dk_k3s2": [(gb(0, 64, 2), gb(1, 64, 1), 1), (gb(1, 64, 2), gb(2, 64, 1), 1),
+                               (gb(2, 64, 2), gb(3, 64, 1), 1), (gb(0, 32, 2), gb(1, 64, 1), 1)],
+            "cost_volume": [((Bg, H2 // R, W2, 32), (Bg, H2 // R, W2, 32), 1, D2, False)]}.items():
+        band_paths.setdefault(name, {})["sp2_gcnet"] = rows
     for spec in specs:
         paths = spec["paths"]
         if spec["name"] in ("conv2d_k3", "conv2d_dk_k3"):  # the towers, whole
@@ -864,6 +889,8 @@ def kernel_specs():
             paths["train_selfsup_psmnet"] = [
                 (selfsup_shape(a), b if spec["kind"] == "conv" else selfsup_shape(b), 2 * n, *args)
                 for a, b, n, *args in paths["train"]]
+        if spec["name"] in ("conv2d_k3", "conv2d_dk_k3"):  # its towers, whole
+            paths["sp2_selfsup"] = paths["train_selfsup_psmnet"]
         # the data-parallel bf16 steps on the shared card: each rank steps on
         # TRAIN_BATCH samples, the train step's shapes
         if "train" in paths:
@@ -1746,13 +1773,14 @@ def run_selfsup_training(dev, name: str) -> dict:
         d = draws(steps)
         profile(f"{path}_profile", lambda: step(state, batch, lr, weights, d))
     med = statistics.median(step_ms[1:])  # the first step also warms the allocator
-    emit({f"{path}_bf16": {
+    TRAIN_ROWS[path] = {
         "net": name, "loss_name": loss_name, "batch": batch_n, "pair": [H, W],
         "views": [SH, SW] if nedge else [H, W], "maxdisparity": MAXDISP, "steps": steps,
         "lr": lr, "loss": losses, "last_metrics": metrics, "eval_before": before,
         "eval_after": after, "step_ms": step_ms, "median_step_ms": med,
         "frames_per_s": batch_n * 1e3 / med, "peak_mem_gb": peak,
-        "launches_per_step": counts[-1], "expected_launches_per_step": expected}})
+        "launches_per_step": counts[-1], "expected_launches_per_step": expected}
+    emit({f"{path}_bf16": TRAIN_ROWS[path]})
     if any(c != expected for c in counts):
         raise RuntimeError(f"{name} self-supervised launches {counts}, expected {expected} "
                            "per step")
@@ -2239,21 +2267,33 @@ def halo_inputs(dev):
     return x.to(dev), k.to(dev), cot.to(dev)
 
 
-def one_process_grads(dev, n_pairs: int) -> dict:
+def one_process_grads(dev, n_pairs: int, loss_name: str = "supervised") -> dict:
     """The one-process references of a parallel phase's float32 check: the
     loss and every parameter's gradient of full-width PSMNet on the first
     ``n_pairs`` pairs of ``train_batch`` through the kernels (float32), and
-    the same on the float64 plain path."""
+    the same on the float64 plain path; with a photometric ``loss_name``,
+    of the self-supervised loss (``selfsup_loss``: two forwards of the
+    SH x SW views) on ``selfsup_batch``'s pairs with step 0's draws."""
     from dsmnet_tpu_torch import config
-    from dsmnet_tpu_torch.losses import supervised_pyramid_loss
+    from dsmnet_tpu_torch.losses import parse_loss_name, supervised_pyramid_loss
+    from dsmnet_tpu_torch.train import draw_selfsup_params, selfsup_generator, selfsup_loss
 
     model = seeded_model(dev).train()
-    batch, weights = train_batch(n_pairs, dev), loss_weights(model)
+    spec = parse_loss_name(loss_name, model.count_levels)
+    if spec.supervised:
+        batch, weights = train_batch(n_pairs, dev), loss_weights(model)
+    else:
+        batch, weights = selfsup_batch(n_pairs, dev), spec.weights(1)
+        draws = draw_selfsup_params(selfsup_generator(SELFSUP_SEED, 0), n_pairs).to(dev)
 
     def grads(m, b):
         m.zero_grad(set_to_none=True)
-        scales, disps = m(b[..., :3], b[..., 3:6])
-        loss = supervised_pyramid_loss(b[..., 6:7], disps, scales, weights)
+        if spec.supervised:
+            scales, disps = m(b[..., :3], b[..., 3:6])
+            loss = supervised_pyramid_loss(b[..., 6:7], disps, scales, weights)
+        else:
+            nedge = SELFSUP_NEDGE if spec.flag_mask else 0
+            loss = selfsup_loss(m, spec.photo, b, nedge, weights, draws)[0]
         loss.backward()
         return loss.item(), {n: p.grad.double().cpu() for n, p in m.named_parameters()}
 
@@ -2399,20 +2439,28 @@ def _sp2_rank(rank: int, ranks: int, port: int, backend: str, queue) -> None:
     or on card ``rank`` over NCCL (``--sp-cards``): (a) a float32 PSMNet
     step on its data index's pair, its band of rows; (b) SP2_STEPS bf16
     PSMNet steps on its data index's TRAIN_BATCH pairs and one profiled
-    step; (c) SP2_GCNET_STEPS bf16 GCNet steps at batch 1; everything to
-    the parent."""
+    step; (c) SP2_GCNET_STEPS bf16 GCNet steps at batch 1; (d) a float32
+    self-supervised PSMNet step of each SP2_SELFSUP_F32_LOSSES (step 0's
+    draws) on its data index's pair, the loss on its band of the views;
+    (e) SP2_STEPS
+    bf16 self-supervised steps at TRAIN_BATCH pairs and one profiled step;
+    everything to the parent."""
     import datetime
     import traceback
 
     from torch.profiler import ProfilerActivity, profile as torch_profile
 
     try:
+        from dsmnet_tpu_torch.losses import parse_loss_name
         from dsmnet_tpu_torch.models.layers import compute_dtype, siamese
         from dsmnet_tpu_torch.ops import _build
         from dsmnet_tpu_torch.parallel import (
             ShardingContext, activate, context, init_distributed, make_mesh, replicate,
             shard_batch)
-        from dsmnet_tpu_torch.train import create_train_state, make_supervised_train_step
+        from dsmnet_tpu_torch.parallel.mesh import axis_index
+        from dsmnet_tpu_torch.train import (
+            create_train_state, draw_selfsup_params, make_selfsup_train_step,
+            make_supervised_train_step, selfsup_generator)
 
         os.environ["LOCAL_RANK"] = str(rank if backend == "nccl" else 0)
         dev = torch.device("cuda", rank) if backend == "nccl" else torch.device(DP2_DEVICE)
@@ -2447,31 +2495,69 @@ def _sp2_rank(rank: int, ranks: int, port: int, backend: str, queue) -> None:
                 torch.cuda.synchronize()
             return device_ms(prof)
 
-        def bf16_steps(name, n, steps, lr, prof_step):
+        index = axis_index(mesh, "data")
+
+        def steps_of(name, n, loss_name):
+            """(the train state of seeded ``name``, ``run(i, lr)``: its step
+            i on the data index's n pairs, supervised or of the photometric
+            ``loss_name`` with step i's draws, returning the metrics)."""
             state, opt = create_train_state(seeded_model(dev, name), device=dev)
             replicate(state, mesh)
-            step = make_supervised_train_step(state.model, opt)
-            batch = shard_batch(train_batch(data * n, dev), mesh)
-            weights = loss_weights(state.model)
+            if loss_name is None:
+                step = make_supervised_train_step(state.model, opt)
+                batch = shard_batch(train_batch(data * n, dev), mesh)
+                weights = loss_weights(state.model)
+                return state, lambda i, lr: step(state, batch, lr, weights)
+            spec = parse_loss_name(loss_name, state.model.count_levels)
+            step = make_selfsup_train_step(state.model, opt, spec.photo,
+                                           SELFSUP_NEDGE if spec.flag_mask else 0)
+            batch = shard_batch(selfsup_batch(data * n, dev), mesh)
+            weights = spec.weights(1)
+            # every model rank of a data index draws its rows of the global draws
+            draws = lambda i: draw_selfsup_params(selfsup_generator(SELFSUP_SEED, i),
+                                                  data * n).rows(index * n, (index + 1) * n)
+            return state, lambda i, lr: step(state, batch, lr, weights, draws(i))
+
+        # (d) float32, self-supervised, one pair a data index: the loss on
+        # the bands of its views, the gradients summed over the mesh (lr 0)
+        out["d"] = {}
+        for loss_name in SP2_SELFSUP_F32_LOSSES:
+            state, run = steps_of("psmnet", 1, loss_name)
+            before = dict(context.COLLECTIVES)
+            with activate(ctx):
+                m = run(0, 0.0)
+            out["d"][loss_name] = {"loss": m["loss"].item(), "grads": {
+                n: p.grad.detach().float().cpu().numpy() for n, p in
+                state.model.named_parameters()}, "collectives": {
+                k: v - before.get(k, 0) for k, v in context.COLLECTIVES.items()
+                if v != before.get(k, 0)}}
+            del state, run, m
+            torch.cuda.empty_cache()
+
+        def bf16_steps(name, n, steps, lr, prof_step, loss_name=None):
+            state, run = steps_of(name, n, loss_name)
             torch.cuda.synchronize()
             torch.cuda.reset_peak_memory_stats()
-            row = {"losses": [], "step_ms": [], "counts": [], "exchanges": []}
+            row = {"losses": [], "step_ms": [], "counts": [], "exchanges": [],
+                   "model_sums": []}
             with activate(ctx), compute_dtype(torch.bfloat16):
-                for _ in range(steps):
+                for i in range(steps):
                     _build.reset_launches()
-                    before = context.COLLECTIVES.get("halo_exchange", 0)
+                    before = dict(context.COLLECTIVES)
                     t0 = time.perf_counter()
-                    loss = step(state, batch, lr, weights)["loss"].item()
+                    loss = run(i, lr)["loss"].item()
                     row["step_ms"].append((time.perf_counter() - t0) * 1e3)
                     row["counts"].append({k: v for k, v in _build.LAUNCHES.items() if v})
-                    row["exchanges"].append(context.COLLECTIVES["halo_exchange"] - before)
+                    made = lambda k: context.COLLECTIVES.get(k, 0) - before.get(k, 0)
+                    row["exchanges"].append(made("halo_exchange"))
+                    row["model_sums"].append(made("model_sum"))
                     row["losses"].append(loss)
                 row["peak_mem_gb"] = torch.cuda.max_memory_allocated() / 1e9
                 if prof_step:
                     with torch_profile(activities=[ProfilerActivity.CPU,
                                                    ProfilerActivity.CUDA]) as prof:
                         t0 = time.perf_counter()
-                        step(state, batch, lr, weights)["loss"].item()
+                        run(steps, lr)["loss"].item()
                         row["profiled_wall_ms"] = (time.perf_counter() - t0) * 1e3
                     table = kernel_table(prof)
                     row["profiled_device_ms"] = sum(ms for _, ms, _ in table)
@@ -2479,13 +2565,16 @@ def _sp2_rank(rank: int, ranks: int, port: int, backend: str, queue) -> None:
                     row["profiled_device_ms_without_nccl"] = sum(
                         ms for name, ms, _ in table if "nccl" not in name.lower())
                     row["top_kernels_ms_count"] = table[:25]
-                    for key in ("halo_exchange", "halo_pad", "grad_allreduce"):
+                    for key in ("halo_exchange", "halo_pad", "grad_allreduce",
+                                "photometric_loss"):
                         spans = under(prof, key)
                         row[key] = {k: spans[k] for k in ("nodes", "device_ms", "launches")}
                     del prof
+                if prof_step and loss_name is None:
                     # the whole-image tower's share: its forward and backward,
                     # on every rank at once as in the step, then on each
                     # rank alone (outside the context: no peer to reduce with)
+                    batch = shard_batch(train_batch(data * n, dev), mesh)
                     row["tower_device_ms"] = tower_ms(state.model, batch)
                     for r in range(ranks):
                         torch.distributed.barrier()
@@ -2493,14 +2582,18 @@ def _sp2_rank(rank: int, ranks: int, port: int, backend: str, queue) -> None:
                             with activate(None):
                                 row["tower_device_ms_alone"] = tower_ms(state.model, batch)
                     torch.distributed.barrier()
-            del state, opt, step, batch
+                    del batch
+            del state, run
             torch.cuda.empty_cache()
             return row
 
-        # (b) PSMNet, bf16, TRAIN_BATCH pairs a data index; (c) GCNet at batch 1
+        # (b) PSMNet, bf16, TRAIN_BATCH pairs a data index; (c) GCNet at batch 1;
+        # (e) PSMNet's self-supervised step at TRAIN_BATCH pairs
         out["b"] = bf16_steps("psmnet", TRAIN_BATCH, SP2_STEPS, TRAIN_LR, True)
         out["c"] = bf16_steps("gcnet", TRAIN_RUNS["gcnet"][1], SP2_GCNET_STEPS,
                               TRAIN_RUNS["gcnet"][3], False)
+        out["e"] = bf16_steps("psmnet", TRAIN_BATCH, SP2_STEPS, SELFSUP_RUNS["psmnet"][4], True,
+                              SP2_SELFSUP_LOSS)
         queue.put(out)
     except BaseException:
         queue.put({"rank": rank, "error": traceback.format_exc()})
@@ -2516,9 +2609,11 @@ def run_spatial(dev, card: str, ranks: int = SP2_RANKS, backend: str = "gloo") -
     ``backend="nccl"`` ``sp<ranks>_nccl``, rank i on card i, a (ranks / 2,
     2) mesh: the one-process references first (on ``dev``), then the
     ranks, then the checks.  Returns the launches of a rank's bf16 PSMNet
-    step (``sp2_train``) and GCNet step (``sp2_gcnet``)."""
+    step (``sp2_train``), GCNet step (``sp2_gcnet``) and self-supervised
+    PSMNet step (``sp2_selfsup``)."""
     data = ranks // 2
     refs = one_process_grads(dev, data)
+    refs_d = {name: one_process_grads(dev, data, name) for name in SP2_SELFSUP_F32_LOSSES}
     port = free_port()
     got, codes = _spawn(_sp2_rank, ranks, lambda r: (ranks, port, backend), DP_TIMEOUT_S + 300)
     errors = [o["error"] for o in got if "error" in o]
@@ -2527,12 +2622,19 @@ def run_spatial(dev, card: str, ranks: int = SP2_RANKS, backend: str = "gloo") -
                            f"errors {errors}")
     r = sorted(got, key=lambda o: o["rank"])
     for o in r:
-        o["a"]["grads"] = {n: torch.from_numpy(g) for n, g in o["a"]["grads"].items()}
+        for part in [o["a"], *o["d"].values()]:
+            part["grads"] = {n: torch.from_numpy(g) for n, g in part["grads"].items()}
     a_row, a_ok = check_summed_grads([o["a"] for o in r], refs)
-    bs, cs = [o["b"] for o in r], [o["c"] for o in r]
+    d_rows, d_ok = {}, True
+    for name in SP2_SELFSUP_F32_LOSSES:  # every rank reports the one global loss
+        row, ok = check_summed_grads([o["d"][name] for o in r], refs_d[name])
+        row["collectives_per_rank"] = [o["d"][name]["collectives"] for o in r]
+        d_rows[name] = row
+        d_ok = d_ok and ok and len({o["d"][name]["loss"] for o in r}) == 1
+    bs, cs, es = [o["b"] for o in r], [o["c"] for o in r], [o["e"] for o in r]
     train, train_gcnet = TRAIN_ROWS.get("train", {}), TRAIN_ROWS.get("train_gcnet", {})
-    expected = {"sp2_train": kernel_launches("sp2_train"), "sp2_gcnet": kernel_launches(
-        "sp2_gcnet")}
+    train_selfsup = TRAIN_ROWS.get(SELFSUP_RUNS["psmnet"][0], {})
+    expected = {path: kernel_launches(path) for path in ("sp2_train", "sp2_gcnet", "sp2_selfsup")}
     med = lambda row: statistics.median(row["step_ms"][1:])
     shared = backend == "gloo"
     emit({"sp2_shared_card" if shared else f"sp{ranks}_nccl": {
@@ -2567,10 +2669,30 @@ def run_spatial(dev, card: str, ranks: int = SP2_RANKS, backend: str = "gloo") -
             "train_gcnet_bf16_peak_mem_gb": train_gcnet.get("peak_mem_gb"),
             "halo_exchanges_per_step": cs[0]["exchanges"][-1],
             "launches_per_step": cs[0]["counts"][-1],
-            "expected_launches_per_step": expected["sp2_gcnet"]}}})
+            "expected_launches_per_step": expected["sp2_gcnet"]},
+        "d_f32_psmnet_selfsup_one_pair_per_data_index": {
+            "pair": [H, W], "views": [SH, SW], "by_loss_name": d_rows},
+        "e_bf16_psmnet_selfsup": {
+            "loss_name": SP2_SELFSUP_LOSS, "batch_per_data_index": TRAIN_BATCH, "pair": [H, W],
+            "views": [SH, SW], "steps": SP2_STEPS, "lr": SELFSUP_RUNS["psmnet"][4],
+            "losses": es[0]["losses"], "step_ms_per_rank": [e["step_ms"] for e in es],
+            "median_step_ms_per_rank": [med(e) for e in es],
+            "train_selfsup_psmnet_bf16_median_step_ms": train_selfsup.get("median_step_ms"),
+            "peak_mem_gb_per_rank": [e["peak_mem_gb"] for e in es],
+            "train_selfsup_psmnet_bf16_peak_mem_gb": train_selfsup.get("peak_mem_gb"),
+            "halo_exchanges_per_step": es[0]["exchanges"][-1],
+            "model_sums_per_step": es[0]["model_sums"][-1],
+            "profiled_step": {k: [e[k] for e in es] for k in (
+                "profiled_wall_ms", "profiled_device_ms", "profiled_device_ms_without_nccl",
+                "photometric_loss", "halo_exchange", "halo_pad", "grad_allreduce",
+                "top_kernels_ms_count")},
+            "launches_per_step": es[0]["counts"][-1],
+            "expected_launches_per_step": expected["sp2_selfsup"]}}})
     if not a_ok:
         raise RuntimeError(f"sp (a): {a_row}")
-    for path, rows in (("sp2_train", bs), ("sp2_gcnet", cs)):
+    if not d_ok:
+        raise RuntimeError(f"sp (d): {d_rows}")
+    for path, rows in (("sp2_train", bs), ("sp2_gcnet", cs), ("sp2_selfsup", es)):
         if any(c != expected[path] for row in rows for c in row["counts"]):
             raise RuntimeError(f"sp {path} launches {[row['counts'] for row in rows]}, "
                                f"expected {expected[path]}")
@@ -2581,7 +2703,8 @@ def run_spatial(dev, card: str, ranks: int = SP2_RANKS, backend: str = "gloo") -
                                f"not finite: {[row['losses'] for row in rows]}")
     if not bs[0]["losses"][-1] < bs[0]["losses"][0]:
         raise RuntimeError(f"sp2_train: the loss did not fall: {bs[0]['losses']}")
-    return {"sp2_train": bs[0]["counts"][-1], "sp2_gcnet": cs[0]["counts"][-1]}
+    return {"sp2_train": bs[0]["counts"][-1], "sp2_gcnet": cs[0]["counts"][-1],
+            "sp2_selfsup": es[0]["counts"][-1]}
 
 
 def kernel_launches(path: str) -> dict:

@@ -22,8 +22,9 @@ its ranks: PSMNet and GCNet run their 2-D tower on the whole images and
 the cost volume, the 3-D part, the regression and the loss on a band of
 rows per rank, exchanging halo rows; a band must be a whole multiple of
 4 rows at 1/4 resolution (PSMNet) or of 16 at 1/2 (GCNet), else it
-raises ``ValueError``; the other models run whole on every model rank;
-a photometric ``--loss_name`` raises ``NotImplementedError``.  The ranks
+raises ``ValueError``; the other models run whole on every model rank.
+A photometric ``--loss_name`` runs its two forwards' towers on the whole
+crops and its loss on each rank's band of the crop's rows.  The ranks
 of one data index read the same samples.  Without ``--multihost``
 ``--batchsize`` is the global batch, which every data index cuts from
 the same seeded order, decoding only its slice; with it every rank reads
@@ -38,6 +39,9 @@ Usage:
         --dataset synthetic --batchsize 16 --shift_max 0 --dtype bfloat16 --mesh-data 4
     torchrun --nproc_per_node 2 -m dsmnet_tpu_torch.cli --mode train --net psmnet \
         --dataset synthetic --batchsize 4 --shift_max 0 --dtype bfloat16 --mesh-model 2
+    torchrun --nproc_per_node 2 -m dsmnet_tpu_torch.cli --mode train --net psmnet \
+        --loss_name depthmono-mask --dataset synthetic --batchsize 4 --shift_max 0 \
+        --dtype bfloat16 --lr 1e-4 --mesh-model 2
     python -m dsmnet_tpu_torch.cli --mode train ... --multihost --coordinator host0:29500 \
         --num_processes 2 --process_id 0      # and --process_id 1 on the other host
     python -m dsmnet_tpu_torch.cli --mode train --net dispnetcorr --dataset synthetic \

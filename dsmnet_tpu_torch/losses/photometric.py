@@ -21,6 +21,14 @@ Under a data-parallel sharding context (``parallel/context.py``) the
 similarity gate and the fallback read the global batch's means and
 valid count, and each plain mean is this rank's share (its sum over the
 global count), so that the ranks' losses sum to the global batch's.
+Inside a banded section (a model that bands H, ``parallel.context.banded``)
+the targets and the disparities are this rank's bands of rows and the
+warps' origins carry the band's first row; SSIM's blur and the
+smoothness terms' differences along H read their neighbours' rows, the
+``C_ds3`` edge weights' per-image means sum over the ``model`` group, and
+the similarity gate, the fallback and the means reduce over the whole
+mesh (the global batch).  The banded models return full-resolution maps
+(scale 0), so a band has no pyramid.
 """
 
 from __future__ import annotations
@@ -33,7 +41,7 @@ from ..ops.gradients import c_ds1, c_ds2, c_ds3, c_imdiff1
 from ..ops.resize import upsample_bilinear
 from ..ops.ssim import ssim_map
 from ..ops.warp import imwarp, warp_disparity
-from ..parallel.context import data_mean, data_sum, mean_share
+from ..parallel.context import data_mean, data_sum, in_band, mean_share
 
 __all__ = ["photometric_pyramid_loss", "weight_common", "PhotoLossConfig"]
 
@@ -158,9 +166,14 @@ def photometric_pyramid_loss(
     curriculum; ``eps`` (a float or a 0-d tensor) the warps' offset.
     Levels above ``min(2, max(scales))`` are upsampled to that level.
     ``scales1`` is the flipped view's, which JAX's signature also takes and
-    ignores: both forwards are of one model.
+    ignores: both forwards are of one model.  Inside a banded section the
+    views and maps are bands, ``left_top`` / ``left_top1`` carry the band's
+    first row of the crop in y, and every level must be 0.
     """
     del scales1
+    if in_band() and max(scales) > 0:
+        raise NotImplementedError("a banded model's maps are at full resolution (scale 0): "
+                                  "no banded pyramid or upsample is ported")
     maxlevel = min(2, max(scales))
     i0 = scales.index(maxlevel)
     h, w = dispLs[i0].shape[1], dispLs[i0].shape[2]

@@ -5,12 +5,25 @@ The reference's padding conventions: a first difference is zero-padded
 by one at the right / bottom, a second or ratio difference by one on both
 sides of the differentiated axis, so every output keeps its input's
 shape.  Images are (N,H,W,C), disparities (N,H,W,1).
+
+Inside a banded section (``parallel.context.banded``) the maps are this
+rank's band of rows.  A difference along H reads the rows of the bands
+beside it (``parallel.halo.halo_pad``: one row below for a first
+difference, one a side for a second or ratio difference); at the image's
+top and bottom the band's own rows are cut before the difference and its
+zero rows padded after, as the whole map's padding makes them, so that
+no difference (and no ratio's division) reads the zero rows of the
+halo.  The ``C_ds3`` family's per-image mean |dI| sums each band over
+the ``model`` group and divides by the whole image's count
+(``parallel.context.image_means``).
 """
 
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
+
+from ..parallel import context
 
 __all__ = [
     "diff1_dx",
@@ -46,16 +59,26 @@ def diff1_dy(x: torch.Tensor) -> torch.Tensor:
     a banded section (``parallel.context.banded``) ``x`` is this rank's band
     of rows: its last row's difference reads the first row of the band
     below (``parallel.halo.halo_pad``), and only the image's last row is 0."""
-    from ..parallel import context
-
     if not context.in_band():
         return _pad_h(x[:, 1:] - x[:, :-1], 0, 1)
+    xp, top, bottom = _halo_rows(x, 0, 1)
+    return _pad_h(xp[:, 1:] - xp[:, :-1], top, bottom)
+
+
+def _halo_rows(x: torch.Tensor, above: int, below: int):
+    """Inside a banded section: (this band of ``x`` with ``above`` rows of
+    the band before it and ``below`` of the band after it, where those
+    bands exist; the zero rows to pad a difference of it with at the top
+    and at the bottom, where they do not).  Every rank exchanges the same
+    rows; the image's first and last ranks then cut the zero rows of the
+    halo, so that the difference never reads them."""
     from ..parallel.halo import halo_pad
 
     m, size, _ = context.spatial_coords()
-    xp = halo_pad(x, 1, 0, 1)
-    d = xp[:, 1:] - xp[:, :-1]
-    return _pad_h(d[:, :-1], 0, 1) if m == size - 1 else d
+    xp = halo_pad(x, 1, above, below)
+    top = above if m == 0 else 0
+    bottom = below if m == size - 1 else 0
+    return xp[:, top:xp.shape[1] - bottom], top, bottom
 
 
 def diff2_dx(x: torch.Tensor) -> torch.Tensor:
@@ -64,8 +87,10 @@ def diff2_dx(x: torch.Tensor) -> torch.Tensor:
 
 
 def diff2_dy(x: torch.Tensor) -> torch.Tensor:
-    """Second difference along H, zero-padded both sides (loss.py:51-54)."""
-    return _pad_h(x[:, 2:] + x[:, :-2] - 2.0 * x[:, 1:-1], 1, 1)
+    """Second difference along H, zero-padded both sides (loss.py:51-54);
+    of a band, with a row of each neighbouring band."""
+    xp, top, bottom = _halo_rows(x, 1, 1) if context.in_band() else (x, 1, 1)
+    return _pad_h(xp[:, 2:] + xp[:, :-2] - 2.0 * xp[:, 1:-1], top, bottom)
 
 
 def diff_z_dx(x: torch.Tensor) -> torch.Tensor:
@@ -75,9 +100,11 @@ def diff_z_dx(x: torch.Tensor) -> torch.Tensor:
 
 
 def diff_z_dy(x: torch.Tensor) -> torch.Tensor:
-    """Ratio curvature along H (loss.py:61-64)."""
-    c = x[:, 1:-1]
-    return _pad_h(c / x[:, 2:] + c / x[:, :-2] - 2.0, 1, 1)
+    """Ratio curvature along H (loss.py:61-64); of a band, with a row of
+    each neighbouring band (never divided by a halo's zero row)."""
+    xp, top, bottom = _halo_rows(x, 1, 1) if context.in_band() else (x, 1, 1)
+    c = xp[:, 1:-1]
+    return _pad_h(c / xp[:, 2:] + c / xp[:, :-2] - 2.0, top, bottom)
 
 
 def c_imdiff1(img: torch.Tensor, img_warp: torch.Tensor) -> torch.Tensor:
@@ -102,10 +129,11 @@ def c_ds2(img: torch.Tensor, disp: torch.Tensor) -> torch.Tensor:
 
 def _mean_normalized_edge_weights(img: torch.Tensor):
     """exp(-max_c |dI| / (0.5 mean |dI|)), the weights of the C_ds3 family
-    (loss.py:104-109).  A constant image divides by a zero mean, as in JAX."""
+    (loss.py:104-109).  A constant image divides by a zero mean, as in JAX.
+    The means are of each whole image, its bands' sums added over the
+    ``model`` group inside a banded section."""
     idx, idy = diff1_dx(img).abs(), diff1_dy(img).abs()
-    m_idx = idx.mean(dim=(1, 2, 3), keepdim=True)
-    m_idy = idy.mean(dim=(1, 2, 3), keepdim=True)
+    m_idx, m_idy = context.image_means(idx, idy)
     wx = torch.exp(-idx.amax(-1, keepdim=True) / (0.5 * m_idx))
     wy = torch.exp(-idy.amax(-1, keepdim=True) / (0.5 * m_idy))
     return wx, wy

@@ -6,6 +6,15 @@ convolves with ``groups=1``: a Gaussian blur of the *channel mean*.  So
 every statistic (mu, sigma) is one of channel-averaged quantities, and
 the map has one channel.  Window 11, sigma 1.5, C1 = 0.01^2, C2 = 0.03^2.
 The blur is two separable 1-D convolutions of the one-channel maps.
+
+Inside a banded section (``parallel.context.banded``) the images are
+this rank's band of rows: the five one-channel maps are padded with
+``window_size // 2`` rows of the bands above and below
+(``parallel.halo.halo_pad``, zeros at the image's top and bottom, which
+are the whole image's zero padding), blurred vertically without padding,
+so that exactly the band's rows come out, then horizontally.  Padding
+the five maps moves five channels of rows, fewer than the two 3-channel
+images would.
 """
 
 from __future__ import annotations
@@ -15,6 +24,8 @@ import functools
 import numpy as np
 import torch
 import torch.nn.functional as F
+
+from ..parallel import context
 
 __all__ = ["ssim_map", "gaussian_kernel_1d"]
 
@@ -30,11 +41,19 @@ def gaussian_kernel_1d(window_size: int = 11, sigma: float = 1.5) -> np.ndarray:
 
 
 def _blur(x: torch.Tensor, window_size: int, sigma: float) -> torch.Tensor:
-    """Separable Gaussian blur of (N,H,W,1) maps, zero-padded to the same size."""
+    """Separable Gaussian blur of (N,H,W,1) maps, zero-padded to the same
+    size; of a band of rows inside a banded section, the band of the whole
+    maps' blur."""
     g = torch.as_tensor(gaussian_kernel_1d(window_size, sigma), dtype=x.dtype, device=x.device)
     p = window_size // 2
+    if context.in_band():
+        from ..parallel.halo import halo_pad
+
+        x, ph = halo_pad(x, 1, p, p), 0
+    else:
+        ph = p
     y = x.permute(0, 3, 1, 2)
-    y = F.conv2d(y, g.view(1, 1, window_size, 1), padding=(p, 0))
+    y = F.conv2d(y, g.view(1, 1, window_size, 1), padding=(ph, 0))
     y = F.conv2d(y, g.view(1, 1, 1, window_size), padding=(0, p))
     return y.permute(0, 2, 3, 1)
 

@@ -18,6 +18,13 @@ a strided slice and the bilinear gather needs only its two horizontal taps
 (JAX :62-77).  That path gives the generic 4-tap path's bits, since there
 the vertical weight is 0 and the bottom taps add exact zeros.  No Pallas
 kernel stands behind this module in JAX.
+
+A warp samples along W only, so each output row reads one source row: a
+band of rows (``parallel.context.banded``) needs no exchange.  The
+self-supervised step warps a band of the crop by passing the band's
+first row in the origin's y (``(nedge, nedge + lo)``) against the whole,
+uncropped source, which takes the fast path; ``warp_disparity`` reads
+the same band of the other view's band at origin (0, 0).
 """
 
 from __future__ import annotations

@@ -41,7 +41,14 @@ same rows twice.  The reductions:
     band's share), the data group for one that runs whole on every
     ``model`` rank (each rank's gradients are already the whole's);
   * :func:`gather_band` — a banded map all-gathered over ``model`` (the
-    eval step's full-resolution disparity).
+    eval step's full-resolution disparity);
+  * :func:`section_band` — the rows ``(lo, hi)`` of the section's whole H
+    that this rank holds (a self-supervised step's band of its views);
+  * :func:`model_sum` — a tensor summed over the ``model`` group alone:
+    the ranks that hold the other bands of the same images.  A statistic
+    of one image (:func:`image_means`, the per-image mean |dI| of the
+    ``C_ds3`` edge weights) sums there: over the whole mesh it would add
+    the other data indices' images into it.
 
 Without an active context each is the single-process expression (a sum is
 returned as it is), so a run without a mesh is untouched and pays nothing.
@@ -79,6 +86,9 @@ __all__ = [
     "data_mean",
     "mean_share",
     "gather_band",
+    "section_band",
+    "model_sum",
+    "image_means",
     "all_reduce_sum",
     "COLLECTIVES",
 ]
@@ -221,6 +231,39 @@ def all_reduce_sum(t: torch.Tensor, group, site: str) -> torch.Tensor:
     dist.all_reduce(out, op=dist.ReduceOp.SUM, group=group)
     COLLECTIVES[site] = COLLECTIVES.get(site, 0) + 1
     return out
+
+
+def section_band() -> tuple[int, int]:
+    """The rows [lo, hi) of the current :func:`banded` section's whole H
+    that this rank holds; (0, None) outside one (the whole H)."""
+    ctx = current()
+    if ctx is None or ctx.band_h is None:
+        return 0, None
+    return band(ctx.band_h, ctx.mesh, ctx.spatial_axis)
+
+
+def model_sum(t: torch.Tensor) -> torch.Tensor:
+    """``t`` summed over the spatial axis's group inside a :func:`banded`
+    section, the ranks that hold the other bands of the same images (no
+    gradient flows through the sum); ``t`` itself outside one, where every
+    ``model`` rank holds the whole images."""
+    if not in_band():
+        return t
+    return all_reduce_sum(t, spatial_coords()[2], "model_sum")
+
+
+def image_means(*xs: torch.Tensor) -> list[torch.Tensor]:
+    """The mean of each NHWC ``x`` over its (H, W, C) per image, (N, 1, 1,
+    1) each.  Inside a :func:`banded` section each ``x`` is this rank's band
+    of rows: its sums are added over the ``model`` group (one all-reduce
+    for all of them) and divided by the whole image's count.  No gradient
+    flows through the reduction: its callers take statistics of the images,
+    which are data."""
+    if not in_band():
+        return [x.mean(dim=(1, 2, 3), keepdim=True) for x in xs]
+    _, size, _ = spatial_coords()
+    sums = model_sum(torch.cat([x.sum(dim=(1, 2, 3)) for x in xs]).view(len(xs), -1))
+    return [s.view(-1, 1, 1, 1) / (x[0].numel() * size) for s, x in zip(sums, xs)]
 
 
 def data_sum(t: torch.Tensor) -> torch.Tensor:

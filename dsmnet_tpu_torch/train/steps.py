@@ -33,9 +33,12 @@ loss and D1/EPE reduce over the whole mesh, and the bucket sums over the
 whole mesh (each rank's gradients are its band's share); a model that
 runs whole on every ``model`` rank sums over the data group alone
 (``parallel.context.gradient_group``).  The eval step returns the whole
-disparity, its bands all-gathered.  The self-supervised steps take no
-band of their views yet: the ``Trainer`` refuses a photometric loss on a
-mesh with ``model`` > 1 (ROADMAP.md, queue 1, item 4).
+disparity, its bands all-gathered.  The self-supervised steps run both
+forwards on the whole augmented crops (the tower is whole on every
+``model`` rank, and every ``model`` rank of a data index draws the same
+augmentation), then the loss in a banded section of the crop's H on this
+rank's band of the targets, rows ``nedge + lo .. nedge + hi`` of the
+batch (not a crop of each band), against the whole uncropped sources.
 """
 
 from __future__ import annotations
@@ -58,11 +61,12 @@ def _split(batch: torch.Tensor):
     return batch[..., :3], batch[..., 3:6], batch[..., 6:7]
 
 
-def _loss_section(model: torch.nn.Module, disp_gt: torch.Tensor):
-    """The section of a supervised step's loss: banded, over the ground
-    truth's rows, when ``model`` bands H under the context."""
+def _loss_section(model: torch.nn.Module, h: int):
+    """The section of a step's loss, metrics and reported loss: banded over
+    the ``h`` rows of the full-resolution maps (the ground truth's, a
+    self-supervised step's crop) when ``model`` bands H under the context."""
     if sharding.bands(model):
-        return sharding.banded(disp_gt.shape[1])
+        return sharding.banded(h)
     return contextlib.nullcontext()
 
 
@@ -75,7 +79,7 @@ def make_supervised_train_step(model: torch.nn.Module, opt: torch.optim.Optimize
         imL, imR, dispL = _split(batch)
         model.train()
         scales, disps = model(imL, imR)
-        with _loss_section(model, dispL):
+        with _loss_section(model, dispL.shape[1]):
             dispL = sharding.shard_activation(dispL)
             loss = supervised_pyramid_loss(dispL, disps, scales, weights, flag_smooth)
             _adam_step(state, opt, loss, lr, sharding.gradient_group(model))
@@ -124,7 +128,7 @@ def make_supervised_eval_step(model: torch.nn.Module, flag_smooth: bool = True):
         imL, imR, dispL = _split(batch)
         model.eval()
         scales, disps = model(imL, imR)
-        with _loss_section(model, dispL):
+        with _loss_section(model, dispL.shape[1]):
             dispL = sharding.shard_activation(dispL)
             loss = supervised_pyramid_loss(dispL, disps, scales, weights, flag_smooth)
             d1, epe = d1_epe(disps[0], dispL)
@@ -164,15 +168,25 @@ def selfsup_loss(model: torch.nn.Module, cfg: PhotoLossConfig, batch: torch.Tens
     """The views, the two forwards (in the model's current mode) and the
     photometric pyramid loss of a self-supervised step: (loss, the first
     forward's full-resolution disparity, the views).  ``draws`` None is the
-    eval step's: no jitter, the warps' default eps."""
+    eval step's: no jitter, the warps' default eps.  When ``model`` bands H
+    under the context the disparities are this rank's bands of the crop's
+    rows: the loss runs in a banded section of the crop's H, on the same
+    band of the targets ``imL``, ``imL1`` (and ``dispL``, returned so), its
+    warps starting at the band's first row of the whole sources; the loss
+    is this rank's share."""
     v = _selfsup_views(batch, nedge, draws)
     scales, disps = model(v["imL_pre"], v["imR_pre"])
     scales1, disps1 = model(v["imL1_pre"], v["imR1_pre"])  # from the first's BN statistics
     eps = 5.5e-5 if draws is None else draws.eps
-    with torch.profiler.record_function("photometric_loss"):
+    with _loss_section(model, v["imL"].shape[1]), \
+            torch.profiler.record_function("photometric_loss"):
+        for k in ("imL", "imL1", "dispL"):
+            if k in v:
+                v[k] = sharding.shard_activation(v[k])
+        left_top = (nedge, nedge + sharding.section_band()[0])
         loss = photometric_pyramid_loss(
-            cfg, v["imR_src"], v["imL"], disps, scales, (nedge, nedge),
-            v["imR1_src"], v["imL1"], disps1, scales1, (nedge, nedge), weights, eps=eps)
+            cfg, v["imR_src"], v["imL"], disps, scales, left_top,
+            v["imR1_src"], v["imL1"], disps1, scales1, left_top, weights, eps=eps)
     return loss, disps[0], v
 
 
@@ -190,15 +204,18 @@ def make_selfsup_train_step(model: torch.nn.Module, opt: torch.optim.Optimizer,
     "epe"}`` on a (N,H,W,6 or 7) [0, 1] batch; ``draws`` is the step's
     ``SelfsupDraws`` (on any device) and ``state`` is updated in place.
     ``nedge`` is 64 with occlusion masking: the border lets a warp sample
-    real content outside the crop (stereo_selfsupervised.py:60,85-95)."""
+    real content outside the crop (stereo_selfsupervised.py:60,85-95).
+    The reported loss and D1/EPE (against this rank's band of ``dispL``
+    when the model bands H) are the global batch's."""
 
     def step(state: TrainState, batch: torch.Tensor, lr: float, weights,
              draws: SelfsupDraws) -> dict:
         model.train()
         loss, disp, v = selfsup_loss(model, cfg, batch, nedge, weights, draws.to(batch.device))
         _adam_step(state, opt, loss, lr, sharding.gradient_group(model))
-        d1, epe = _d1_epe_of_views(disp.detach(), v)
-        return {"loss": sharding.data_sum(loss.detach()), "d1": d1, "epe": epe}
+        with _loss_section(model, batch.shape[1] - 2 * nedge):
+            d1, epe = _d1_epe_of_views(disp.detach(), v)
+            return {"loss": sharding.data_sum(loss.detach()), "d1": d1, "epe": epe}
 
     return step
 
@@ -206,14 +223,17 @@ def make_selfsup_train_step(model: torch.nn.Module, opt: torch.optim.Optimizer,
 def make_selfsup_eval_step(model: torch.nn.Module, cfg: PhotoLossConfig):
     """Returns ``step(state, batch, weights) -> {"loss", "d1", "epe",
     "disp"}`` (stereo_selfsupervised.py:148-241): no border, no jitter, the
-    warps' default eps, BN on its running statistics."""
+    warps' default eps, BN on its running statistics; ``disp`` whole, its
+    bands all-gathered when the model bands H."""
 
     @torch.no_grad()
     def step(state: TrainState, batch: torch.Tensor, weights) -> dict:
         del state
         model.eval()
         loss, disp, v = selfsup_loss(model, cfg, batch, 0, weights)
-        d1, epe = _d1_epe_of_views(disp, v)
-        return {"loss": sharding.data_sum(loss), "d1": d1, "epe": epe, "disp": disp}
+        with _loss_section(model, batch.shape[1]):
+            d1, epe = _d1_epe_of_views(disp, v)
+            return {"loss": sharding.data_sum(loss), "d1": d1, "epe": epe,
+                    "disp": sharding.gather_band(disp)}
 
     return step

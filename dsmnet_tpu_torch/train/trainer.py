@@ -27,10 +27,10 @@ through ``global_batch_from_host_local``), and the meters count the
 global batch.  A mesh with ``model`` > 1 also splits H over the ``model``
 ranks (``ShardingContext(mesh, "data", "model")``, as JAX's trainer sets
 ``spatial``): PSMNet and GCNet train on bands of rows, the other models
-run whole on every ``model`` rank; the self-supervised losses do not
-band yet and raise ``NotImplementedError`` there.  Checkpoints, the history, the curves and ``submit``'s
-files are written by the primary rank, and every rank waits at a
-barrier until they are.
+run whole on every ``model`` rank; a photometric loss runs on the same
+bands of the crops (its towers whole).  Checkpoints, the history, the
+curves and ``submit``'s files are written by the primary rank, and every
+rank waits at a barrier until they are.
 """
 
 from __future__ import annotations
@@ -150,12 +150,6 @@ class Trainer:
                                               max(maxepoch_adjust, 1))
         if cfg.mode == "finetune":
             self.spec = dataclasses.replace(self.spec, maxepoch_weight_adjust=0)
-        if self._sharding_ctx is not None and self._sharding_ctx.spatial_axis \
-                and not self.spec.supervised:
-            raise NotImplementedError(
-                f"--loss_name {cfg.loss_name} on a mesh with model > 1: the self-supervised "
-                "path does not band H yet (ROADMAP.md, queue 1, item 4, 'The "
-                "self-supervised path under a model axis')")
 
         self.dirpath = os.path.join(
             cfg.output, f"{cfg.mode}_{cfg.dataset}", f"{cfg.net}_{cfg.loss_name}"

@@ -291,13 +291,12 @@ def test_cli_mesh_flags(two_ranks):
         with pytest.raises(ValueError, match="exceeds the one rank"):
             cli.main(base + [flag, "2"])
     # under a group of 2: --mesh-model 2 makes a (1, 2) mesh; a photometric
-    # loss on it raises, naming the ROADMAP item; a mesh that leaves a rank
-    # out, or exceeds them, raises
+    # loss runs on it (DispNet does not band: its bucket sums over the data
+    # group of one); a mesh that leaves a rank out, or exceeds them, raises
     for rank, o in enumerate(r["checks"] for r in two_ranks[1]):
         assert o["cli_mesh_model2"] == ((1, 2), rank)
-        assert "ROADMAP.md, queue 1, item 4" in o["trainer_model2"]
-        assert o["cli_model2"][0] == "NotImplementedError"
-        assert "ROADMAP.md, queue 1, item 4" in o["cli_model2"][1]
+        assert o["trainer_model2"] == ("model", False, 1)
+        assert o["cli_model2"] == ("model", True, [])
         assert o["cli_data1"] == ("ValueError", "mesh 1x1 does not cover the 2 ranks: a rank "
                                                 "outside the mesh would train alone")
         assert o["cli_data4"] == ("ValueError", "mesh 4x1 exceeds 2 ranks")

@@ -279,22 +279,27 @@ def placement(rank, world, payload):
 
 
 def mesh_checks(rank, world, payload):
-    """What refuses to run on 2 ranks (a Trainer with a photometric loss on a
-    mesh with model > 1, the same through the CLI's --mesh-model 2, and a
-    --mesh-data that leaves a rank out), the CLI's mesh for --mesh-model 2,
-    and a Trainer's placement and draws on a (2, 1) mesh."""
+    """A Trainer with a photometric loss on a mesh with model > 1 (its
+    spatial axis, whether its loss is supervised, its gradient bucket's
+    group size), the same through the CLI's --mesh-model 2 (no epoch: its
+    spatial axis, whether it has a photometric loss, its loss history);
+    what refuses to run on 2 ranks (a --mesh-data that leaves a rank out,
+    or exceeds them), the CLI's mesh for --mesh-model 2, and a Trainer's
+    placement and draws on a (2, 1) mesh."""
     import argparse
 
+    import torch.distributed as dist
+
     from dsmnet_tpu_torch import cli
-    from dsmnet_tpu_torch.parallel import make_mesh
+    from dsmnet_tpu_torch.parallel import activate, context, make_mesh
     from dsmnet_tpu_torch.train import TrainConfig, Trainer
 
     out = {}
-    try:
-        Trainer(TrainConfig(net="dispnet", maxdisparity=16, loss_name="Cap_ds-mask",
+    t = Trainer(TrainConfig(net="dispnet", maxdisparity=16, loss_name="Cap_ds-mask",
                             device="cpu"), mesh=make_mesh(data=1, model=2))
-    except NotImplementedError as exc:
-        out["trainer_model2"] = str(exc)
+    with activate(t._sharding_ctx):
+        out["trainer_model2"] = (t._sharding_ctx.spatial_axis, t.spec.supervised,
+                                 dist.get_world_size(context.gradient_group(t.model)))
     mesh = cli._make_mesh(argparse.Namespace(mesh_data=0, mesh_model=2))
     out["cli_mesh_model2"] = (tuple(mesh.shape), mesh.get_local_rank("model"))
     # a Trainer on a (2, 1) mesh places its part of a global batch, or of a
@@ -310,8 +315,10 @@ def mesh_checks(rank, world, payload):
     out["draws"] = [_np(v) for v in (d.order, d.u, d.alpha, d.eps)]
     base = ["--mode", "train", "--net", "dispnet", "--maxdisparity", "16", "--dataset",
             "synthetic", "--device", "cpu"]
-    for key, flags in (("cli_model2", ["--mesh-model", "2", "--loss_name", "Cap_ds-mask"]),
-                       ("cli_data1", ["--mesh-data", "1"]), ("cli_data4", ["--mesh-data", "4"])):
+    t, hist = cli.main(base + ["--mesh-model", "2", "--loss_name", "Cap_ds-mask", "--epochs",
+                               "0", "--output", "cli_model2"])
+    out["cli_model2"] = (t._sharding_ctx.spatial_axis, t.spec.photo is not None, hist["loss"])
+    for key, flags in (("cli_data1", ["--mesh-data", "1"]), ("cli_data4", ["--mesh-data", "4"])):
         try:
             cli.main(base + flags)
         except (NotImplementedError, ValueError) as exc:
@@ -447,6 +454,85 @@ def banded_ops(rank, world, payload):
     return out
 
 
+def _rank_batch_band(world: int):
+    """The (world / 2, 2) mesh, its context with H over ``model``, and two
+    functions: a global (N, H, ...) array's slice of this rank's data
+    index, and that slice's band of rows of this rank's ``model``
+    coordinate."""
+    from dsmnet_tpu_torch.parallel import ShardingContext, make_mesh, shard_batch
+    from dsmnet_tpu_torch.parallel.mesh import axis_index
+
+    mesh = make_mesh(data=world // 2, model=2)
+    m = axis_index(mesh, "model")
+    data = lambda a: shard_batch(torch.from_numpy(a), mesh).clone()
+    return (mesh, ShardingContext(mesh, "data", "model"), data,
+            lambda a: _band(data(a), 1, m, 2))
+
+
+def banded_photometric(rank, world, payload):
+    """The self-supervised loss's ops, float64, on a (world / 2, 2) mesh:
+    each data index holds its slice of the global batch, each ``model``
+    rank its band of rows.  Inside a banded section of the maps' H:
+    ``ssim_map``, the finite differences and smoothness terms (each with
+    the gradient of sum(out * g) with respect to its banded operand),
+    ``imwarp`` of a band of the crop from the whole source at origin
+    (nedge, nedge + lo), and ``photometric_pyramid_loss`` of each loss
+    name (this rank's share and its gradients with respect to both views'
+    disparity bands); the warps taken by the horizontal fast path and by
+    the generic one, and the collectives by site."""
+    from dsmnet_tpu_torch.losses import parse_loss_name, photometric_pyramid_loss
+    from dsmnet_tpu_torch.ops import gradients, ssim, warp
+    from dsmnet_tpu_torch.parallel import activate, banded, context
+
+    _, ctx, data, band = _rank_batch_band(world)
+    paths = {"fast": 0, "generic": 0}
+    for key, name in (("fast", "_bilinear_gather_zero_pad_h"),
+                      ("generic", "_bilinear_gather_zero_pad")):
+        def counted(*a, _f=getattr(warp, name), _k=key):
+            paths[_k] += 1
+            return _f(*a)
+        setattr(warp, name, counted)
+    out = {}
+    before = dict(context.COLLECTIVES)
+    with activate(ctx):
+        a, b = (band(x) for x in payload["ssim"])
+        with banded(payload["ssim"][0].shape[1]):
+            out["ssim"] = _np(ssim.ssim_map(a, b))
+        for name, p in payload["ops"].items():
+            args = [band(x).requires_grad_(i == p["wrt"]) for i, x in enumerate(p["args"])]
+            with banded(p["args"][0].shape[1]):
+                y = getattr(gradients, name)(*args)
+            (y * band(p["g"])).sum().backward()
+            out[name] = {"y": _np(y), "grad": _np(args[p["wrt"]].grad)}
+        s = payload["scene"]
+        e, h = s["nedge"], s["imL"].shape[1]
+        imR_src, imR1_src = data(s["imR_src"]), data(s["imR1_src"])
+        imL, imL1 = band(s["imL"]), band(s["imL1"])
+        with banded(h):
+            lo = context.section_band()[0]
+            out["lo"] = lo
+            out["imwarp"] = _np(warp.imwarp(imR_src, band(s["dispL"]), False, (e, e + lo)))
+            for name in payload["loss_names"]:
+                dl, dl1 = band(s["dispL"]).requires_grad_(), band(s["dispL1"]).requires_grad_()
+                loss = photometric_pyramid_loss(
+                    parse_loss_name(name, 1, 10).photo, imR_src, imL, [dl], [0], (e, e + lo),
+                    imR1_src, imL1, [dl1], [0], (e, e + lo), np.ones(1),
+                    eps=torch.tensor(s["eps"], dtype=torch.float64))
+                loss.backward()
+                out[name] = {"loss": _np(loss), "dl": _np(dl.grad), "dl1": _np(dl1.grad)}
+            try:
+                photometric_pyramid_loss(parse_loss_name("depthmono", 2, 10).photo, imR_src,
+                                         imL, [dl, dl], [0, 1], (e, e + lo), imR1_src, imL1,
+                                         [dl1, dl1], [0, 1], (e, e + lo), np.ones(2))
+                out["level1"] = None
+            except NotImplementedError as exc:
+                out["level1"] = str(exc)
+    out["warp_paths"] = paths
+    out["collectives"] = {k: v - before.get(k, 0) for k, v in context.COLLECTIVES.items()
+                          if v != before.get(k, 0)}
+    return out
+
+
 def init_paths(rank, world, payload):
     """init_distributed from --coordinator-style arguments (host:port), then,
     after that group is gone, from torchrun's environment (env://)."""
@@ -542,37 +628,63 @@ def _gcnet_lr_eval(mesh, ctx, maxdisp: int, global_batch):
 
 
 def selfsup_step(rank, world, payload):
-    """One float64 self-supervised step on this rank's shard, with its rows
-    of the global batch's draws."""
+    """One float64 self-supervised step from the flax weights (or the
+    seed-0 weights without ``params``) on this rank's shard, with its rows
+    of the global batch's draws, under a (world, 1) mesh or the (data,
+    model) of ``payload["mesh"]`` (H split over ``model``: a model that
+    bands runs its loss on its band of the crop); given ``eval_batch``,
+    first the eval step on it from the same weights (its disparity whole);
+    and the step's collectives by site and the gradient bucket's group
+    size."""
+    import torch.distributed as dist
+
     from dsmnet_tpu_torch import interop
     from dsmnet_tpu_torch.losses import parse_loss_name
     from dsmnet_tpu_torch.models import create_model
-    from dsmnet_tpu_torch.parallel import ShardingContext, activate, make_mesh, shard_batch
-    from dsmnet_tpu_torch.train import create_train_state, make_selfsup_train_step
+    from dsmnet_tpu_torch.parallel import (ShardingContext, activate, context, make_mesh,
+                                           shard_batch)
+    from dsmnet_tpu_torch.parallel.mesh import axis_index
+    from dsmnet_tpu_torch.train import (create_train_state, make_selfsup_eval_step,
+                                        make_selfsup_train_step)
 
-    tm = create_model(payload["net"], payload["maxdisp"]).double()
-    interop.load_flax_variables(tm, payload["params"])
+    tm = create_model(payload["net"], payload["maxdisp"])
+    if "params" in payload:
+        interop.load_flax_variables(tm.double(), payload["params"], payload.get("batch_stats"))
+    else:  # the weights seeded by 0, as the caller's
+        tm = tm.reset_parameters(torch.Generator().manual_seed(0)).double()
     spec = parse_loss_name(payload["loss_name"], tm.count_levels, 10)
-    mesh = make_mesh(data=world)
+    data, model = payload.get("mesh", (world, 1))
+    mesh = make_mesh(data=data, model=model)
     state, opt = create_train_state(tm, device="cpu")
     batch = shard_batch(payload["batch"], mesh)
-    n = batch.shape[0]
-    draws = payload["draws"].rows(rank * n, (rank + 1) * n)
-    with activate(ShardingContext(mesh)):
+    n, index = batch.shape[0], axis_index(mesh, "data")
+    draws = payload["draws"].rows(index * n, (index + 1) * n)
+    out = {}
+    with activate(ShardingContext(mesh, "data", "model" if model > 1 else None)):
+        if "eval_batch" in payload:
+            ev = make_selfsup_eval_step(tm, spec.photo)(
+                state, shard_batch(payload["eval_batch"], mesh), payload["weights"])
+            out["eval"] = {k: _np(v) for k, v in ev.items()}
+        before = dict(context.COLLECTIVES)
         m = make_selfsup_train_step(tm, opt, spec.photo, payload["nedge"])(
             state, batch, payload["lr"], payload["weights"], draws)
-    return {**{k: v.item() for k, v in m.items()}, **_grads_params_buffers(tm, rank)}
+        out["grad_group_size"] = dist.get_world_size(context.gradient_group(tm))
+    out["collectives"] = {k: v - before.get(k, 0) for k, v in context.COLLECTIVES.items()
+                          if v != before.get(k, 0)}
+    return {**out, **{k: v.item() for k, v in m.items()}, **_grads_params_buffers(tm, rank)}
 
 
 def trainer(rank, world, payload):
     """The port's Trainer through ``payload["cfg"]`` on a (world, 1) mesh or
     the (data, model) of ``payload["mesh"]``, with loaders cut into the
-    data indices' slices: its history, weights and files, and the size of
+    data indices' slices (of [0, 1] images with ``selfsup``; validation at
+    ``val_hw`` if given): its history, weights and files, and the size of
     the group its gradient bucket sums over; then, given
     ``payload["resume_cfg"]``, what a Trainer of it resumes from."""
     import torch.distributed as dist
 
-    from dsmnet_tpu_torch.data import BatchLoader, SyntheticStereoDataset, eval_transform
+    from dsmnet_tpu_torch.data import (BatchLoader, SyntheticStereoDataset, eval_transform,
+                                       selfsup_eval_transform)
     from dsmnet_tpu_torch.parallel import activate, make_mesh
     from dsmnet_tpu_torch.parallel import context
     from dsmnet_tpu_torch.parallel.mesh import axis_index
@@ -580,10 +692,11 @@ def trainer(rank, world, payload):
 
     data, model = payload.get("mesh", (world, 1))
     mesh = make_mesh(data=data, model=model)
+    transform = selfsup_eval_transform() if payload.get("selfsup") else eval_transform()
 
     def loader(shuffle):
-        ds = SyntheticStereoDataset(n=payload["n"], hw=payload["hw"], max_disp=16,
-                                    transform=eval_transform())
+        hw = payload["hw"] if shuffle else payload.get("val_hw", payload["hw"])
+        ds = SyntheticStereoDataset(n=payload["n"], hw=hw, max_disp=16, transform=transform)
         return BatchLoader(ds, batch_size=payload["batch"], shuffle=shuffle, num_workers=1,
                            seed=0, rank_slice=(axis_index(mesh, "data"), data))
 
