@@ -7,6 +7,9 @@ NDHWC 3-D convs and the chunked trilinear soft-argmin regression.
 Faithful quirks kept on purpose (``psmnet.py:10-17``):
   * convbn pads by its dilation for every kernel, so the SPP 1x1 branch
     convs pad by 1 before their bilinear upsample;
+  * an SPP window larger than the 1/4-resolution map (an input under 256
+    pixels) pools an empty map, VALID as ``lax.reduce_window``, and the
+    branch is its BN's constant (``psmnet.py:48-53,78-81``);
   * the third hourglass receives ``presqu=pre1``;
   * classifier costs accumulate: cost2 += cost1, cost3 += cost2;
   * the model returns [pred3, pred2, pred1], all at scale 0.
@@ -54,8 +57,25 @@ __all__ = ["PSMNet"]
 
 
 def _avg_pool(x: torch.Tensor, k: int) -> torch.Tensor:
-    """k x k average pool, stride k, VALID (SPP branches)."""
+    """k x k average pool, stride k, VALID (SPP branches).  A window larger
+    than the map gives a map of h // k rows and w // k columns, one of them
+    0, as JAX's ``lax.reduce_window``."""
+    h, w = x.shape[1:3]
+    if h < k or w < k:
+        return x[:, : h // k, : w // k]
     return F.avg_pool2d(x.permute(0, 3, 1, 2), k, k).permute(0, 2, 3, 1)
+
+
+def _spp_branch(branch: ConvBN, x: torch.Tensor) -> torch.Tensor:
+    """The branch's 1x1 ConvBN (padding 1) on a pooled map.  On an empty
+    map the padded conv is (h + 2, w + 2) zeros, then BN and ReLU, as in
+    JAX; the kernel enters as a product over the empty map, so its
+    gradient is an exact 0, as JAX's, not None."""
+    if x.shape[1] and x.shape[2]:
+        return branch(x)
+    x, kern = branch.Conv_0.cast(x)
+    y = F.pad(torch.einsum("nhwc,co->nhwo", x, kern[0, 0]), (0, 0, 1, 1, 1, 1))
+    return F.relu(branch.BatchNorm_0(branch.Conv_0.add_bias(y)))
 
 
 class _FeatureExtraction(nn.Module):
@@ -97,7 +117,7 @@ class _FeatureExtraction(nn.Module):
         h, w = skip.shape[1], skip.shape[2]
         branches = []
         for i, k in enumerate((64, 32, 16, 8)):
-            b = getattr(self, f"branch{i}")(_avg_pool(skip, k))
+            b = _spp_branch(getattr(self, f"branch{i}"), _avg_pool(skip, k))
             branches.append(resize_bilinear(b, (h, w)))
         fused = torch.cat([raw, skip] + branches[::-1], dim=-1)
         return self.lastconv1(self.lastconv0(fused))

@@ -33,13 +33,15 @@ from dsmnet_tpu_torch.models import create_model as t_create_model
 from dsmnet_tpu_torch.train import create_train_state, make_supervised_train_step
 from test_torch_train import _flat, _relerr, _seeded_flax_variables
 from test_torch_train_zoo import _NoFloat32
+from torch_parallel_ranks import worker_cpus
 
 
 @pytest.fixture(autouse=True)
 def _two_threads():
     old = torch.get_num_threads()
     torch.set_num_threads(2)
-    yield
+    with worker_cpus(2):
+        yield
     torch.set_num_threads(old)
 
 

@@ -350,7 +350,7 @@ def test_context_and_its_call_sites(monkeypatch):
         monkeypatch.setattr(mod, "shard_activation", spy)
     monkeypatch.setattr(context, "shard_cost_volume", spy)
     with torch.no_grad():
-        # PSMNet's SPP pools 64x64 at 1/4: 256x256 is its smallest input
+        # PSMNet at 256x256: every SPP pool (64x64 at 1/4) has a window
         for name, kw, hw in (("gcnet", {}, 64), ("psmnet", {}, 256),
                              ("psmnet", {"fused_stem": False}, 256)):
             calls.clear()

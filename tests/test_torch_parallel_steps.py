@@ -55,15 +55,25 @@ from test_torch_photometric import jax_step_draws
 from test_torch_train import _flat, _recording_adam, _relerr, _seeded_flax_variables
 from test_torch_train_zoo import _F32_CASTS, LR, REL, ZERO_ATOL, _NoFloat32
 from test_torch_trainer import MAXDISP, NET, _cfg, _flax_tree, _loader
-from torch_parallel_ranks import Ranks
+from torch_parallel_ranks import Ranks, worker_cpus
 
 
 @pytest.fixture(autouse=True)
 def _two_threads():
     old = torch.get_num_threads()
     torch.set_num_threads(2)
-    yield
+    with worker_cpus(2):
+        yield
     torch.set_num_threads(old)
+
+
+@pytest.fixture(autouse=True)
+def _no_checkpoints_left(tmp_path):
+    """The test's files go with it: the trainers' checkpoints (DispNet's are
+    ~1 GB each) would fill the disk, since pytest keeps the temporary
+    directories of the last three runs."""
+    yield
+    shutil.rmtree(tmp_path, ignore_errors=True)
 
 
 def _jax_dp_step(make_step, model, variables, batch, *args):
@@ -196,9 +206,6 @@ def test_trainer_on_two_ranks_matches_jax_mesh_and_resumes(tmp_path, monkeypatch
     with open(os.path.join(jt.dirpath, "loss_history.json")) as f:
         j_hist = json.load(f)
     after = flatten(jax.device_get(jt.state.params))
-    for out in ("jax", "torch"):  # the port's DispNet checkpoints are ~1 GB
-        shutil.rmtree(tmp_path / out)
-    os.remove(w0)
 
     lr = payload["cfg"]["lr"]
     o = r[0]

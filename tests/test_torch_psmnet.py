@@ -4,10 +4,16 @@ Both sides run create_model("psmnet", maxdisparity=16) at 1x256x320 in
 float64 on the CPU with the same weights: the port's seeded weights laid
 onto the flax tree, and the flax tree carried back into a fresh port
 model by ``interop.load_flax_variables``.  BatchNorm statistics are harvested from
-one JAX train-mode pass (as in tests/test_golden_torch_psmnet.py), which
-keeps the ~50 BN layers of a random network at O(1) activations.  All
-three heads must agree to 1e-6 relative; the JAX regression runs in
-float32 (regression.py:52), which is what sets that tolerance.
+one train-mode pass of the port (which ``test_torch_train.py`` holds to
+JAX's), which keeps the ~50 BN layers of a random network at O(1)
+activations.  All three heads must agree to 1e-6 relative; the JAX
+regression runs in float32 (regression.py:52), which is what sets that
+tolerance.  The JAX side is one eval-mode ``jax.jit`` (JAX's train-mode
+pass and eval op by op took ~75 s at 256x320 in a full test run on an
+8-CPU machine).
+
+``test_torch_psmnet_small.py`` holds PSMNet and PSMNet-basic below 256
+pixels with the same check.
 """
 
 import flax
@@ -23,6 +29,8 @@ from dsmnet_tpu_torch import interop
 from dsmnet_tpu_torch.models import create_model as t_create_model
 from dsmnet_tpu_torch.models.layers import ResBlockPSM as TResBlockPSM
 from dsmnet_tpu_torch.models.layers import reset_parameters
+from test_torch_train import NO_FOLDING
+from test_torch_trainer import _flax_tree
 
 
 @pytest.fixture(autouse=True)
@@ -70,35 +78,47 @@ def _seeded_flax_variables(model, tm, h, w):
 
 
 def test_psmnet_eval_matches_jax_f64():
-    maxdisp, h, w = 16, 256, 320
-    rng = np.random.RandomState(0)
-    imL = rng.rand(1, h, w, 3)
-    imR = rng.rand(1, h, w, 3)
-    tm = t_create_model("psmnet", maxdisp).reset_parameters(torch.Generator().manual_seed(0))
+    eval_matches_jax_f64("psmnet", 256, 320, np.random.RandomState(0))
+
+
+def eval_matches_jax_f64(name, h, w, rng):
+    """The port's ``name`` (maxdisparity 16) in eval mode against JAX's on
+    one pair, float64: the port's seeded weights, BN perturbed, the running
+    statistics those of one train-mode pass of the port (from zeros,
+    divided by the momentum's 0.1; PSMNet-basic's tower updates them once a
+    view), which keeps the ~50 BN layers of a random network at O(1)
+    activations; the JAX side one jit; every head to 1e-6 of its largest
+    value."""
+    maxdisp = 16
+    imL, imR = rng.rand(1, h, w, 3), rng.rand(1, h, w, 3)
+    tm = t_create_model(name, maxdisp).reset_parameters(torch.Generator().manual_seed(0))
+    model = j_create_model(name, maxdisparity=maxdisp)
+    variables = _randomize_bn(_seeded_flax_variables(model, tm, h, w), rng)
+    tm = t_create_model(name, maxdisp).double()  # fresh: every leaf comes from flax
+    interop.load_flax_variables(tm, variables["params"], variables["batch_stats"])
+    with torch.no_grad():
+        for b in tm.buffers():
+            b.zero_()
+        tm.train()(torch.from_numpy(imL), torch.from_numpy(imR))
+        for b in tm.buffers():
+            b /= 0.1
     with jax.enable_x64():
-        model = j_create_model("psmnet", maxdisparity=maxdisp)
-        variables = _seeded_flax_variables(model, tm, h, w)
-        variables = jax.tree.map(lambda a: jnp.asarray(a, jnp.float64),
-                                 _randomize_bn(variables, rng))
-        _, upd = model.apply(variables, jnp.asarray(imL), jnp.asarray(imR), train=True,
-                             mutable=["batch_stats"])
-        old = flax.traverse_util.flatten_dict(variables["batch_stats"])
-        new = flax.traverse_util.flatten_dict(upd["batch_stats"])
-        stats = flax.traverse_util.unflatten_dict(
-            {k: (new[k] - 0.9 * old[k]) / 0.1 for k in old})
-        variables = {"params": variables["params"], "batch_stats": stats}
-        _, disps = model.apply(variables, jnp.asarray(imL), jnp.asarray(imR), train=False)
+        args = ({"params": jax.tree.map(lambda a: jnp.asarray(a, jnp.float64),
+                                        variables["params"]),
+                 "batch_stats": _flax_tree(tm)["batch_stats"]}, imL, imR)
+        # one jit, without XLA's constant folding (test_torch_train.NO_FOLDING)
+        evaluate = jax.jit(lambda v, a, b: model.apply(v, a, b, train=False))
+        _, disps = evaluate.lower(*args).compile(NO_FOLDING)(*args)
         ref = [np.asarray(d, np.float64) for d in disps]
 
-    tm = t_create_model("psmnet", maxdisp).double()  # fresh: every leaf comes from flax
-    interop.load_flax_variables(tm, variables["params"], variables["batch_stats"])
     tm.eval()
     with torch.no_grad():
         _, outs = tm(torch.from_numpy(imL), torch.from_numpy(imR))
-    assert len(outs) == len(ref) == 3
+    assert len(outs) == len(ref) == {"psmnet": 3, "psmnet_basic": 1}[name]
     for i, (o, r) in enumerate(zip(outs, ref)):
         o = o.numpy()
         assert o.shape == r.shape == (1, h, w, 1), (i, o.shape, r.shape)
+        assert np.isfinite(r).all()
         err = np.max(np.abs(o - r))
         scale = max(np.max(np.abs(r)), 1e-3)
         assert err / scale < 1e-6, f"head {i}: max err {err} (scale {scale})"

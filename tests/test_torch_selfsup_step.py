@@ -28,6 +28,7 @@ the repo's longest file.
 """
 
 import os
+import shutil
 
 import flax.linen as nn
 import jax
@@ -58,6 +59,7 @@ import chip_smoke
 from test_torch_photometric import jax_step_draws
 from test_torch_train import _flat, _recording_adam, _relerr, _seeded_flax_variables
 from test_torch_train_zoo import _F32_CASTS, _NoFloat32
+from torch_parallel_ranks import worker_cpus
 
 LR, REL = 1e-3, 1e-9
 
@@ -66,8 +68,18 @@ LR, REL = 1e-3, 1e-9
 def _two_threads():
     old = torch.get_num_threads()
     torch.set_num_threads(2)
-    yield
+    with worker_cpus(2):
+        yield
     torch.set_num_threads(old)
+
+
+@pytest.fixture(autouse=True)
+def _no_checkpoints_left(tmp_path):
+    """The test's files go with it: the trainers' checkpoints (DispNet's are
+    ~1 GB each) would fill the disk, since pytest keeps the temporary
+    directories of the last three runs."""
+    yield
+    shutil.rmtree(tmp_path, ignore_errors=True)
 
 
 def _jax_selfsup_step(model, variables, batch, weights, cfg, nedge, key, evaluate):

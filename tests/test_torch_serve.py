@@ -1,7 +1,7 @@
 """Serving path of the PyTorch port on the CPU: Predictor and the deploy CLI.
 
-Seeded weights, maxdisparity 16, a 256x256 pair (the smallest size whose
-1/4-scale features fit PSMNet's 64x64 SPP pool).  The answer must be a
+Seeded weights, maxdisparity 16, a 256x256 pair (whose 1/4-scale features
+fit every SPP pool of PSMNet, 64x64 the largest).  The answer must be a
 finite (1, H, W) disparity inside the clamp range [1e-6, maxdisparity].
 """
 

@@ -46,7 +46,7 @@ from test_torch_parallel_steps import _check_ranks
 from test_torch_photometric import jax_step_draws
 from test_torch_train import _flat, _recording_adam, _relerr, _seeded_flax_variables
 from test_torch_train_zoo import _F32_CASTS, LR, REL, _NoFloat32
-from torch_parallel_ranks import Ranks
+from torch_parallel_ranks import Ranks, worker_cpus
 
 LOSS = "Cap_ds-mask"
 NEDGE = 64
@@ -56,8 +56,18 @@ NEDGE = 64
 def _two_threads():
     old = torch.get_num_threads()
     torch.set_num_threads(2)
-    yield
+    with worker_cpus(2):
+        yield
     torch.set_num_threads(old)
+
+
+@pytest.fixture(autouse=True)
+def _no_checkpoints_left(tmp_path):
+    """The test's files go with it: the trainers' checkpoints (DispNet's are
+    ~1 GB each) would fill the disk, since pytest keeps the temporary
+    directories of the last three runs."""
+    yield
+    shutil.rmtree(tmp_path, ignore_errors=True)
 
 
 def _batch(rng, n, h, w, maxdisp):
@@ -135,8 +145,6 @@ def test_trainer_selfsup_on_model_mesh_matches_one_process(tmp_path):
         hist = one.start()
         r = ranks.results()
     after = {k: v.numpy() for k, v in one.model.state_dict().items()}
-    shutil.rmtree(tmp_path / "one")
-    shutil.rmtree(tmp_path / "ranks")
     o = r[0]
     for rank_out in r:
         assert (rank_out["epoch0"], rank_out["step0"], rank_out["step"]) == (0, 0, 1)

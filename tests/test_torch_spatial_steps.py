@@ -17,7 +17,7 @@ axis) on gloo ranks (processes: ``torch_parallel_ranks.py``).
     JAX's mesh is the reference at 128x96 only.  And GCNetLR's float64
     eval forward at 64x96 (maxdisparity 16) on the (2, 2) mesh, its bands
     gathered, against its forward in one process.
-  * PSMNet (fused stem; 256x256, its smallest input; maxdisparity 16),
+  * PSMNet (fused stem; 256x256, every SPP pool non-empty; maxdisparity 16),
     float64, on a (1, 2) mesh, a plain and a ``remat`` step, against the
     port's single-process step on the same batch and weights, which
     ``test_torch_train.py`` holds to JAX.
@@ -57,15 +57,25 @@ from test_torch_parallel_steps import _check_ranks
 from test_torch_train import _flat, _recording_adam, _relerr, _seeded_flax_variables
 from test_torch_train_zoo import _F32_CASTS, LR, REL, ZERO_ATOL, _NoFloat32
 from test_torch_trainer import MAXDISP, NET, _cfg, _flax_tree, _loader
-from torch_parallel_ranks import Ranks
+from torch_parallel_ranks import Ranks, worker_cpus
 
 
 @pytest.fixture(autouse=True)
 def _two_threads():
     old = torch.get_num_threads()
     torch.set_num_threads(2)
-    yield
+    with worker_cpus(2):
+        yield
     torch.set_num_threads(old)
+
+
+@pytest.fixture(autouse=True)
+def _no_checkpoints_left(tmp_path):
+    """The test's files go with it: the trainers' checkpoints (DispNet's are
+    ~1 GB each) would fill the disk, since pytest keeps the temporary
+    directories of the last three runs."""
+    yield
+    shutil.rmtree(tmp_path, ignore_errors=True)
 
 
 def _batch(rng, n, h, w, maxdisp):
@@ -228,8 +238,6 @@ def test_trainer_on_model_mesh_matches_jax(tmp_path, monkeypatch):
     with open(os.path.join(jt.dirpath, "loss_history.json")) as f:
         j_hist = json.load(f)
     after = flatten(jax.device_get(jt.state.params))
-    for out in ("jax", "torch"):  # the port's DispNet checkpoints are ~1 GB
-        shutil.rmtree(tmp_path / out)
 
     lr = cfg["lr"]
     o = r[0]

@@ -10,19 +10,21 @@ import pytest
 import torch
 
 from test_torch_train_zoo import check_train_step_f64
+from torch_parallel_ranks import worker_cpus
 
 
 @pytest.fixture(autouse=True)
 def _two_threads():
     old = torch.get_num_threads()
     torch.set_num_threads(2)
-    yield
+    with worker_cpus(2):
+        yield
     torch.set_num_threads(old)
 
 
 def test_psmnet_basic_train_step_matches_jax_f64(rng, monkeypatch):
-    """PSMNet-basic at 256x256 (the smallest size whose SPP pools, 64x64 at
-    1/4, have a window), maxdisparity 16, batch 1: the tower once per view
+    """PSMNet-basic at 256x256 (where every SPP pool, up to 64x64 at 1/4,
+    has a window), maxdisparity 16, batch 1: the tower once per view
     (each BN updates its statistics twice), the masked volume, five residual
     3-D blocks and the trilinear regression."""
     check_train_step_f64("psmnet_basic", 16, 1, 256, 256, rng, monkeypatch)

@@ -54,6 +54,7 @@ from dsmnet_tpu_torch.losses import parse_loss_name
 from dsmnet_tpu_torch.models import create_model as t_create_model
 from dsmnet_tpu_torch.train import create_train_state, make_supervised_train_step
 from test_torch_train import _flat, _recording_adam, _relerr, _seeded_flax_variables
+from torch_parallel_ranks import worker_cpus
 
 LR = 1e-3
 REL, ZERO_ATOL = 1e-9, 1e-12
@@ -63,7 +64,8 @@ REL, ZERO_ATOL = 1e-9, 1e-12
 def _two_threads():
     old = torch.get_num_threads()
     torch.set_num_threads(2)
-    yield
+    with worker_cpus(2):
+        yield
     torch.set_num_threads(old)
 
 

@@ -36,6 +36,7 @@ Three tests (``--dist loadfile`` queues a file of three or fewer behind
 import dataclasses
 import json
 import os
+import shutil
 
 import flax
 import jax
@@ -56,14 +57,25 @@ from dsmnet_tpu_torch.images import read_png16
 from dsmnet_tpu_torch.interop import flatten
 from dsmnet_tpu_torch.models import create_model as t_create_model
 from dsmnet_tpu_torch.train import TrainConfig, Trainer, load_weights, lr_for_epoch
+from torch_parallel_ranks import worker_cpus
 
 
 @pytest.fixture(autouse=True)
 def _two_threads():
     old = torch.get_num_threads()
     torch.set_num_threads(2)
-    yield
+    with worker_cpus(2):
+        yield
     torch.set_num_threads(old)
+
+
+@pytest.fixture(autouse=True)
+def _no_checkpoints_left(tmp_path):
+    """The test's files go with it: the trainers' checkpoints (DispNet's are
+    ~1 GB each) would fill the disk, since pytest keeps the temporary
+    directories of the last three runs."""
+    yield
+    shutil.rmtree(tmp_path, ignore_errors=True)
 
 
 NET, MAXDISP, HW = "dispnet", 32, (64, 96)

@@ -228,7 +228,7 @@ _WRAPPERS = [
 # name -> (maxdisparity, H, W, wrapper calls of one forward): the launches
 # per request that chip_smoke.py expects at 384x768, maxdisparity 192,
 # at a size where GCNet's volume stays even down to l30's input (PSMNet's
-# at 256x256, its smallest input)
+# at 256x256, where every SPP pool has a window)
 ROUTES = {
     "psmnet": (32, 256, 256, {"conv2d_k3": 8, "conv3d_k3": 12, "conv3d_k3s2": 6,
                               "deconv3d_k3s2": 3, "fused_costvol": 1}),

@@ -10,10 +10,15 @@ passes numpy arrays in ``payload``: this module and the ranks import no
 JAX.  A rank that fails, or a run that outlasts its timeout, kills every
 rank and fails the test, so a hung collective never holds the suite; each
 group also has a 60 s timeout of its own.
+
+``worker_cpus`` keeps a heavy test's own threads (XLA's CPU pool among
+them) on two CPUs of its pytest-xdist worker while it runs; its ranks
+take every CPU back.
 """
 
 from __future__ import annotations
 
+import contextlib
 import datetime
 import hashlib
 import os
@@ -29,6 +34,35 @@ import torch
 TESTS = Path(__file__).resolve().parent
 REPO = TESTS.parent
 GROUP_TIMEOUT = datetime.timedelta(seconds=60)
+ALL_CPUS = sorted(os.sched_getaffinity(0))  # at import, before a test confines its worker
+
+
+def _pin_threads(cpus) -> None:
+    """Every thread of this process on ``cpus``."""
+    for tid in os.listdir("/proc/self/task"):
+        try:
+            os.sched_setaffinity(int(tid), cpus)
+        except OSError:  # a thread that ended meanwhile
+            pass
+
+
+@contextlib.contextmanager
+def worker_cpus(n: int = 2):
+    """Under pytest-xdist, this worker's threads on ``n`` CPUs of its own
+    (worker gw<i>: CPUs n i .. n i + n - 1, modulo the machine's) while the
+    test runs, so that a JAX reference's XLA threads do not spread over
+    every CPU, where the suite's critical path (``tests/test_train_zoo.py``)
+    and the test's own ranks run; a single process keeps every CPU."""
+    worker = os.environ.get("PYTEST_XDIST_WORKER", "")
+    if not worker.startswith("gw") or len(ALL_CPUS) <= n:
+        yield
+        return
+    i = int(worker[2:])
+    _pin_threads({ALL_CPUS[(n * i + k) % len(ALL_CPUS)] for k in range(n)})
+    try:
+        yield
+    finally:
+        _pin_threads(ALL_CPUS)
 
 
 class Ranks:
@@ -43,7 +77,8 @@ class Ranks:
             pickle.dump(payload, f)
         path = os.pathsep.join(p for p in (str(REPO), str(TESTS), os.environ.get("PYTHONPATH"))
                                if p)
-        env = dict(os.environ, PYTHONPATH=path, CUDA_VISIBLE_DEVICES="", OMP_NUM_THREADS="1")
+        env = dict(os.environ, PYTHONPATH=path, CUDA_VISIBLE_DEVICES="", OMP_NUM_THREADS="1",
+                   TEST_RANK_CPUS=",".join(map(str, ALL_CPUS)))
         for key in ("RANK", "WORLD_SIZE", "LOCAL_RANK", "MASTER_ADDR", "MASTER_PORT"):
             env.pop(key, None)
         self.procs, self.logs = [], []
@@ -112,6 +147,8 @@ def run_ranks(name: str, world: int, tmp_path, payload=None, timeout: float = 12
 def _main(name: str, rank: int, world: int, work: str) -> None:
     from dsmnet_tpu_torch.parallel import init_distributed
 
+    # every CPU, whatever the spawning test's worker was confined to
+    _pin_threads({int(c) for c in os.environ["TEST_RANK_CPUS"].split(",")})
     torch.set_num_threads(1)
     with open(Path(work) / "payload.pkl", "rb") as f:
         payload = pickle.load(f)
