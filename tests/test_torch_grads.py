@@ -22,7 +22,10 @@ on the CPU:
     backward of the Cout = 1 3x3 conv against ``jax.vjp``, float64;
   * the graph rules: each op's output carries its ``Function``, and a
     kernel wrapper handed an operand that requires grad raises; a
-    weight-gradient wrapper forced to its kernel refuses a CPU tensor.
+    weight-gradient wrapper forced to its kernel refuses a CPU tensor;
+  * ``torch_jax_dots`` (the float64 convolutions of the heavier JAX
+    references lowered as matrix products) against XLA's convolution, the
+    forward and both VJP operands, float64 to 1e-12.
 """
 
 import jax
@@ -30,6 +33,9 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from jax import lax
+
+import torch_jax_dots
 
 from dsmnet_tpu.ops import conv2d as j_conv2d
 from dsmnet_tpu.ops import conv3d as j_conv3d
@@ -306,3 +312,51 @@ def test_conv2d_same_cout1_backward_matches_jax_f64(c, rng):
     ty.backward(torch.from_numpy(g))
     np.testing.assert_allclose(tx.grad.numpy(), ref_dx, rtol=1e-12, atol=1e-12)
     np.testing.assert_allclose(tk.grad.numpy(), ref_dk, rtol=1e-12, atol=1e-12)
+
+
+# lhs, kernel, strides, padding, kernel dilation, layout: the forms of the
+# models' large float64 convolutions; their VJPs add the input-dilated
+# (stride-2 dx) and the kernel-gradient forms, whose output has fewer
+# positions than taps
+DOTS_CASES = {
+    "2d_3x3": ((2, 9, 11, 4), (3, 3, 4, 5), (1, 1), ((1, 1), (1, 1)), (1, 1),
+               ("NHWC", "HWIO", "NHWC")),
+    "2d_3x3_s2": ((2, 9, 11, 4), (3, 3, 4, 5), (2, 2), ((1, 1), (1, 1)), (1, 1),
+                  ("NHWC", "HWIO", "NHWC")),
+    "2d_3x3_dilated": ((1, 12, 10, 4), (3, 3, 4, 5), (1, 1), ((2, 2), (2, 2)), (2, 2),
+                       ("NHWC", "HWIO", "NHWC")),
+    "2d_oihw_uneven_pad": ((2, 3, 9, 10), (5, 3, 3, 3), (1, 1), ((1, 0), (0, 1)), (1, 1),
+                           ("NCHW", "OIHW", "NCHW")),
+    "3d_3x3x3": ((1, 5, 7, 6, 4), (3, 3, 3, 4, 5), (1, 1, 1), ((1, 1),) * 3, (1, 1, 1),
+                 ("NDHWC", "DHWIO", "NDHWC")),
+    "3d_3x3x3_s2": ((1, 6, 8, 6, 4), (3, 3, 3, 4, 5), (2, 2, 2), ((1, 1),) * 3, (1, 1, 1),
+                    ("NDHWC", "DHWIO", "NDHWC")),
+}
+
+
+@pytest.mark.parametrize("name", sorted(DOTS_CASES))
+def test_f64_convs_as_dots_match_xla_conv(name, rng, monkeypatch):
+    """Inside ``f64_convs_as_dots`` (every size admitted here) a float64
+    convolution lowers to no HLO convolution, and its value and its VJP
+    with respect to both operands equal XLA's convolution's to 1e-12 of
+    their largest entry."""
+    xs, ks, strides, padding, dilation, layout = DOTS_CASES[name]
+    x, k = rng.randn(*xs), rng.randn(*ks)
+    monkeypatch.setattr(torch_jax_dots, "MIN_MACS", 0)
+
+    def conv_and_vjp(a, b):
+        y, vjp = jax.vjp(lambda a, b: lax.conv_general_dilated(
+            a, b, strides, padding, rhs_dilation=dilation, dimension_numbers=layout), a, b)
+        return (y, *vjp(jnp.cos(y)))
+
+    with jax.enable_x64():
+        want = jax.jit(conv_and_vjp)(x, k)
+        assert "convolution" in jax.jit(conv_and_vjp).lower(x, k).as_text()
+        with torch_jax_dots.f64_convs_as_dots():
+            dots = jax.jit(lambda a, b: conv_and_vjp(a, b))  # a new trace, lowered here
+            assert "convolution" not in dots.lower(x, k).as_text()
+            got = dots(x, k)
+    for g, w in zip(got, want):
+        assert g.shape == w.shape and g.dtype == w.dtype == jnp.float64
+        np.testing.assert_allclose(np.asarray(g), np.asarray(w), rtol=0,
+                                   atol=1e-12 * np.abs(w).max())

@@ -7,11 +7,18 @@
     fresh interpreter.
   * Entry points default to CUDA and raise when it is absent: checked in a
     subprocess with every card hidden, so the check means the same on any
-    host.
+    host (the entry points' subprocesses run at once).
   * A kernel wrapper asked for its CUDA path on a CPU tensor raises before
     it computes anything.
+  * Every port test file of four tests or fewer runs its tests under
+    ``torch_parallel_ranks.worker_cpus``: pytest-xdist's ``--dist
+    loadfile`` queues such a file behind (or, at four, just ahead of) the
+    suite's longest file, ``tests/test_train_zoo.py``, beside which it runs.
 """
 
+import ast
+import importlib
+import math
 import os
 import subprocess
 import sys
@@ -24,6 +31,7 @@ from dsmnet_tpu_torch import config
 from dsmnet_tpu_torch.ops import _build, conv2d, conv3d, corr, cost_volume, fused_costvol
 
 REPO = Path(__file__).resolve().parent.parent
+TESTS = REPO / "tests"
 
 
 @pytest.fixture(autouse=True)
@@ -98,12 +106,33 @@ _ENTRY_POINTS = {
 }
 
 
+@pytest.fixture(scope="module")
+def entry_point_runs():
+    """entry point -> (exit code, stderr) of its call in a fresh interpreter
+    with every card hidden; the interpreters run at once."""
+    env = dict(os.environ, PYTHONPATH=str(REPO), CUDA_VISIBLE_DEVICES="")
+    procs = {name: subprocess.Popen(
+        [sys.executable, "-c", "import torch\nassert not torch.cuda.is_available()\n" + code],
+        cwd=REPO, env=env, stdout=subprocess.DEVNULL, stderr=subprocess.PIPE, text=True)
+        for name, code in _ENTRY_POINTS.items()}
+    runs = {}
+    try:
+        for name, p in procs.items():
+            _, stderr = p.communicate(timeout=120)
+            runs[name] = (p.returncode, stderr)
+    finally:
+        for p in procs.values():
+            p.kill()
+            p.wait()
+    return runs
+
+
 @pytest.mark.parametrize("entry", sorted(_ENTRY_POINTS))
-def test_entry_point_without_cuda_raises(entry):
+def test_entry_point_without_cuda_raises(entry, entry_point_runs):
     """device=None means CUDA; with no card the call raises, never falls back."""
-    res = _run("import torch\nassert not torch.cuda.is_available()\n" + _ENTRY_POINTS[entry])
-    assert res.returncode != 0
-    assert "CUDA is not available" in res.stderr, res.stderr
+    code, stderr = entry_point_runs[entry]
+    assert code != 0
+    assert "CUDA is not available" in stderr, stderr
 
 
 # op switch -> (kernel wrapper, module holding its plain version, plain name,
@@ -143,3 +172,42 @@ def test_kernel_wrapper_refuses_cpu_tensor(op, monkeypatch):
             wrapper(x, k)
     assert calls == []
     assert _build.LAUNCHES == before
+
+
+def _collected(module) -> int:
+    """The number of tests pytest collects from ``module``: each test
+    function once per combination of its ``parametrize`` marks."""
+    count = 0
+    for name, fn in vars(module).items():
+        if name.startswith("test_") and callable(fn):
+            count += math.prod(len(m.args[1]) for m in getattr(fn, "pytestmark", [])
+                               if m.name == "parametrize")
+    return count
+
+
+def _enters_worker_cpus(source: str) -> bool:
+    """Whether an autouse fixture of the file enters ``worker_cpus``."""
+    for node in ast.parse(source).body:
+        if isinstance(node, ast.FunctionDef) and any(
+                "autouse=True" in ast.unparse(d) for d in node.decorator_list):
+            calls = [i.context_expr for w in ast.walk(node) if isinstance(w, ast.With)
+                     for i in w.items]
+            if any(isinstance(c, ast.Call) and ast.unparse(c.func) == "worker_cpus"
+                   for c in calls):
+                return True
+    return False
+
+
+def test_small_port_files_run_under_worker_cpus():
+    """A heavy test belongs in a file of three tests or fewer, which queues
+    behind ``tests/test_train_zoo.py`` and runs beside it: its threads must
+    yield that file the CPUs (``worker_cpus``), or the suite's length grows
+    with the new test's."""
+    small = {}
+    for path in sorted(TESTS.glob("test_torch_*.py")):
+        n = _collected(importlib.import_module(path.stem))
+        assert n > 0, path.name
+        if n <= 4:
+            small[path.name] = _enters_worker_cpus(path.read_text())
+    assert len(small) >= 11, small
+    assert all(small.values()), sorted(name for name, ok in small.items() if not ok)

@@ -33,6 +33,7 @@ from dsmnet_tpu_torch.models import create_model as t_create_model
 from dsmnet_tpu_torch.train import create_train_state, make_supervised_train_step
 from test_torch_train import _flat, _relerr, _seeded_flax_variables
 from test_torch_train_zoo import _NoFloat32
+from torch_jax_dots import f64_convs_as_dots
 from torch_parallel_ranks import worker_cpus
 
 
@@ -40,7 +41,7 @@ from torch_parallel_ranks import worker_cpus
 def _two_threads():
     old = torch.get_num_threads()
     torch.set_num_threads(2)
-    with worker_cpus(2):
+    with worker_cpus():
         yield
     torch.set_num_threads(old)
 
@@ -101,7 +102,7 @@ def test_psmnet_without_fused_stem_matches_jax_f64(rng, monkeypatch):
         torch.Generator().manual_seed(0))
     assert tuple(tm.dres0_0.Conv_0.kernel.shape) == (3, 3, 3, 64, 32)
     monkeypatch.setattr(j_regression, "jnp", _NoFloat32())
-    with jax.enable_x64():
+    with jax.enable_x64(), f64_convs_as_dots():
         jm = j_create_model("psmnet", maxdisparity=maxdisp, fused_stem=False)
         v = _seeded_flax_variables(jm, tm, h, w, rng)
         v_np = jax.tree.map(np.asarray, v)

@@ -10,7 +10,8 @@ activations.  All three heads must agree to 1e-6 relative; the JAX
 regression runs in float32 (regression.py:52), which is what sets that
 tolerance.  The JAX side is one eval-mode ``jax.jit`` (JAX's train-mode
 pass and eval op by op took ~75 s at 256x320 in a full test run on an
-8-CPU machine).
+8-CPU machine), its float64 convolutions lowered as matrix products
+(``torch_jax_dots``).
 
 ``test_torch_psmnet_small.py`` holds PSMNet and PSMNet-basic below 256
 pixels with the same check.
@@ -31,6 +32,7 @@ from dsmnet_tpu_torch.models.layers import ResBlockPSM as TResBlockPSM
 from dsmnet_tpu_torch.models.layers import reset_parameters
 from test_torch_train import NO_FOLDING
 from test_torch_trainer import _flax_tree
+from torch_jax_dots import f64_convs_as_dots
 
 
 @pytest.fixture(autouse=True)
@@ -102,7 +104,7 @@ def eval_matches_jax_f64(name, h, w, rng):
         tm.train()(torch.from_numpy(imL), torch.from_numpy(imR))
         for b in tm.buffers():
             b /= 0.1
-    with jax.enable_x64():
+    with jax.enable_x64(), f64_convs_as_dots():
         args = ({"params": jax.tree.map(lambda a: jnp.asarray(a, jnp.float64),
                                         variables["params"]),
                  "batch_stats": _flax_tree(tm)["batch_stats"]}, imL, imR)

@@ -68,7 +68,7 @@ LR, REL = 1e-3, 1e-9
 def _two_threads():
     old = torch.get_num_threads()
     torch.set_num_threads(2)
-    with worker_cpus(2):
+    with worker_cpus():
         yield
     torch.set_num_threads(old)
 

@@ -64,7 +64,7 @@ from torch_parallel_ranks import Ranks, worker_cpus
 def _two_threads():
     old = torch.get_num_threads()
     torch.set_num_threads(2)
-    with worker_cpus(2):
+    with worker_cpus():
         yield
     torch.set_num_threads(old)
 

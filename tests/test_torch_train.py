@@ -6,8 +6,9 @@ Same numpy inputs, made from a seed, on both sides, on the CPU:
     (where every SPP pool, up to 64x64 at 1/4 resolution, has a window;
     ``check_psmnet_step_f64`` also runs below it, in
     ``test_torch_psmnet_small.py``), maxdisparity 16, against the JAX step on the same weights
-    carried by ``interop``: loss, D1/EPE, every parameter's gradient, the
-    parameters after the step and the BN running statistics;
+    carried by ``interop`` (its float64 convolutions lowered as matrix
+    products, ``torch_jax_dots``): loss, D1/EPE, every parameter's
+    gradient, the parameters after the step and the BN running statistics;
   * the loss falls over a few steps on one fixed batch;
   * under bf16 the weight-gradient kernels get bf16 cotangents.
 
@@ -37,6 +38,7 @@ from dsmnet_tpu_torch.train import (
     make_supervised_eval_step,
     make_supervised_train_step,
 )
+from torch_jax_dots import f64_convs_as_dots
 from torch_parallel_ranks import worker_cpus
 
 
@@ -44,7 +46,7 @@ from torch_parallel_ranks import worker_cpus
 def _two_threads():
     old = torch.get_num_threads()
     torch.set_num_threads(2)
-    with worker_cpus(2):
+    with worker_cpus():
         yield
     torch.set_num_threads(old)
 
@@ -129,7 +131,7 @@ def check_psmnet_step_f64(rng, h, w, still=()):
     batch[..., 6] = batch[..., 6] * 14 + 1
     batch[0, :8, :, 6] = 0.0  # invalid ground truth
     tm = t_create_model("psmnet", maxdisp).reset_parameters(torch.Generator().manual_seed(0))
-    with jax.enable_x64():
+    with jax.enable_x64(), f64_convs_as_dots():
         model = j_create_model("psmnet", maxdisparity=maxdisp)
         v = _seeded_flax_variables(model, tm, h, w, rng)
         v_np = jax.tree.map(np.asarray, v)  # the step donates (deletes) its state

@@ -17,7 +17,7 @@ from torch_parallel_ranks import worker_cpus
 def _two_threads():
     old = torch.get_num_threads()
     torch.set_num_threads(2)
-    with worker_cpus(2):
+    with worker_cpus():
         yield
     torch.set_num_threads(old)
 
@@ -27,7 +27,7 @@ def test_psmnet_basic_train_step_matches_jax_f64(rng, monkeypatch):
     has a window), maxdisparity 16, batch 1: the tower once per view
     (each BN updates its statistics twice), the masked volume, five residual
     3-D blocks and the trilinear regression."""
-    check_train_step_f64("psmnet_basic", 16, 1, 256, 256, rng, monkeypatch)
+    check_train_step_f64("psmnet_basic", 16, 1, 256, 256, rng, monkeypatch, convs_as_dots=True)
 
 
 def test_iresnet_train_step_matches_jax_f64(rng, monkeypatch):

@@ -33,6 +33,8 @@ longest file, ``test_train_zoo.py``); PSMNet-basic and iResNet are in
 ``test_torch_train_spp_iresnet.py``.
 """
 
+import contextlib
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -54,6 +56,7 @@ from dsmnet_tpu_torch.losses import parse_loss_name
 from dsmnet_tpu_torch.models import create_model as t_create_model
 from dsmnet_tpu_torch.train import create_train_state, make_supervised_train_step
 from test_torch_train import _flat, _recording_adam, _relerr, _seeded_flax_variables
+from torch_jax_dots import f64_convs_as_dots
 from torch_parallel_ranks import worker_cpus
 
 LR = 1e-3
@@ -64,7 +67,7 @@ REL, ZERO_ATOL = 1e-9, 1e-12
 def _two_threads():
     old = torch.get_num_threads()
     torch.set_num_threads(2)
-    with worker_cpus(2):
+    with worker_cpus():
         yield
     torch.set_num_threads(old)
 
@@ -81,9 +84,14 @@ class _NoFloat32:
 _F32_CASTS = (j_softargmin, j_regression, j_conv3d, j_warp, j_dispnet, j_iresnet)
 
 
-def check_train_step_f64(name, maxdisp, n, h, w, rng, monkeypatch, **kwargs):
+def check_train_step_f64(name, maxdisp, n, h, w, rng, monkeypatch, convs_as_dots=False,
+                         **kwargs):
     """One float64 supervised step of the port's ``name`` against the JAX
-    step on the same batch and weights; returns the port's model."""
+    step on the same batch and weights; returns the port's model.  With
+    ``convs_as_dots`` the JAX step's large float64 convolutions run as
+    matrix products (``torch_jax_dots``), which pays for PSMNet's 3-D
+    convolutions and costs the smaller models more compilation than it
+    saves."""
     batch = rng.rand(n, h, w, 7)
     batch[..., 6] = batch[..., 6] * (maxdisp - 2) + 1
     batch[0, :4, :, 6] = 0.0  # invalid ground truth
@@ -93,7 +101,7 @@ def check_train_step_f64(name, maxdisp, n, h, w, rng, monkeypatch, **kwargs):
     weights = parse_loss_name("supervised", tm.count_levels, 10).weights(3).astype(np.float64)
     for mod in _F32_CASTS:
         monkeypatch.setattr(mod, "jnp", _NoFloat32())
-    with jax.enable_x64():
+    with jax.enable_x64(), (f64_convs_as_dots() if convs_as_dots else contextlib.nullcontext()):
         model = j_create_model(name, maxdisparity=maxdisp, **kwargs)
         v = _seeded_flax_variables(model, tm, h, w, rng)
         v_np = jax.tree.map(np.asarray, v)  # the step donates (deletes) its state

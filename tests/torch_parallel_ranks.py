@@ -11,9 +11,9 @@ JAX.  A rank that fails, or a run that outlasts its timeout, kills every
 rank and fails the test, so a hung collective never holds the suite; each
 group also has a 60 s timeout of its own.
 
-``worker_cpus`` keeps a heavy test's own threads (XLA's CPU pool among
-them) on two CPUs of its pytest-xdist worker while it runs; its ranks
-take every CPU back.
+``worker_cpus`` lowers the priority of a heavy test's own threads (XLA's
+CPU pool among them) in its pytest-xdist worker while it runs; its ranks
+run at the suite's priority.
 """
 
 from __future__ import annotations
@@ -34,35 +34,37 @@ import torch
 TESTS = Path(__file__).resolve().parent
 REPO = TESTS.parent
 GROUP_TIMEOUT = datetime.timedelta(seconds=60)
-ALL_CPUS = sorted(os.sched_getaffinity(0))  # at import, before a test confines its worker
+BASE_NICE = os.getpriority(os.PRIO_PROCESS, 0)  # at import, before a test lowers it
+# a heavy test's threads under pytest-xdist: at this priority a CPU that the
+# suite's critical path also wants gives them about a quarter of its time,
+# and a CPU that nobody else wants all of it
+WORKER_NICE = BASE_NICE + 5
 
 
-def _pin_threads(cpus) -> None:
-    """Every thread of this process on ``cpus``."""
-    for tid in os.listdir("/proc/self/task"):
+def _set_priority(nice: int) -> None:
+    """Every thread of this process at priority ``nice``."""
+    for tid in map(int, os.listdir("/proc/self/task")):
         try:
-            os.sched_setaffinity(int(tid), cpus)
-        except OSError:  # a thread that ended meanwhile
+            os.setpriority(os.PRIO_PROCESS, tid, nice)
+        except OSError:  # a thread that ended meanwhile, or no right to raise a priority
             pass
 
 
 @contextlib.contextmanager
-def worker_cpus(n: int = 2):
-    """Under pytest-xdist, this worker's threads on ``n`` CPUs of its own
-    (worker gw<i>: CPUs n i .. n i + n - 1, modulo the machine's) while the
-    test runs, so that a JAX reference's XLA threads do not spread over
-    every CPU, where the suite's critical path (``tests/test_train_zoo.py``)
-    and the test's own ranks run; a single process keeps every CPU."""
-    worker = os.environ.get("PYTEST_XDIST_WORKER", "")
-    if not worker.startswith("gw") or len(ALL_CPUS) <= n:
+def worker_cpus():
+    """Under pytest-xdist, this worker's threads (a JAX reference's XLA pool
+    among them) at ``WORKER_NICE`` while the test runs, so that they take
+    the CPU time that the suite's critical path (``tests/test_train_zoo.py``,
+    on another worker) leaves; the test's ranks run at the suite's priority.
+    A single process keeps its priority."""
+    if not os.environ.get("PYTEST_XDIST_WORKER", "").startswith("gw"):
         yield
         return
-    i = int(worker[2:])
-    _pin_threads({ALL_CPUS[(n * i + k) % len(ALL_CPUS)] for k in range(n)})
+    _set_priority(WORKER_NICE)
     try:
         yield
     finally:
-        _pin_threads(ALL_CPUS)
+        _set_priority(BASE_NICE)
 
 
 class Ranks:
@@ -78,7 +80,7 @@ class Ranks:
         path = os.pathsep.join(p for p in (str(REPO), str(TESTS), os.environ.get("PYTHONPATH"))
                                if p)
         env = dict(os.environ, PYTHONPATH=path, CUDA_VISIBLE_DEVICES="", OMP_NUM_THREADS="1",
-                   TEST_RANK_CPUS=",".join(map(str, ALL_CPUS)))
+                   TEST_RANK_NICE=str(BASE_NICE))
         for key in ("RANK", "WORLD_SIZE", "LOCAL_RANK", "MASTER_ADDR", "MASTER_PORT"):
             env.pop(key, None)
         self.procs, self.logs = [], []
@@ -147,8 +149,8 @@ def run_ranks(name: str, world: int, tmp_path, payload=None, timeout: float = 12
 def _main(name: str, rank: int, world: int, work: str) -> None:
     from dsmnet_tpu_torch.parallel import init_distributed
 
-    # every CPU, whatever the spawning test's worker was confined to
-    _pin_threads({int(c) for c in os.environ["TEST_RANK_CPUS"].split(",")})
+    # the suite's priority, whatever the spawning test's worker had
+    _set_priority(int(os.environ["TEST_RANK_NICE"]))
     torch.set_num_threads(1)
     with open(Path(work) / "payload.pkl", "rb") as f:
         payload = pickle.load(f)
